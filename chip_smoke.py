@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one line each:
+
+1. Environment: torch, CUDA, nvcc, Triton and the card's name and power
+   limit. Fails unless ``torch.cuda.is_available()``; never runs on the CPU.
+2. Builds kernel K1 (``hipe_tpu_torch/csrc/blur_planar.cu``) from the
+   checkout's sources.
+3. Holds K1 against its plain PyTorch version on distinct random planes:
+   radius 1-4, clamp and valid modes, ragged shapes, one full-stream pass,
+   and every ``rows_per_block`` the autotune sweeps. Max-abs error must be 0.
+4. The main path: the 5000-image 256x256x3 blur3 stream through
+   ``DeviceStreamRunner`` (autotune, verify against the NumPy oracle, three
+   throughput sessions), with K1's launch count taken over that run alone.
+   The plain version's per-pass time on the same stream is timed for the
+   record.
+
+Then one JSON line of per-kernel results, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
+and the script exits non-zero.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import torch  # noqa: E402
+
+NUM_IMAGES = 5000
+SIDE = 256
+CHANNELS = 3
+PASSES = 10
+SESSIONS = 3
+# Planes per call of the plain version on the card: its int32 temporaries
+# for the whole (15000, 256, 256) stream would be ~3.9 GB each.
+PLAIN_CHUNK = 1000
+SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1))
+
+
+def _run(cmd: list[str]) -> str:
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({type(e).__name__})"
+    lines = (proc.stdout.strip() or proc.stderr.strip() or "no output").splitlines()
+    return next((ln for ln in lines if "release" in ln), lines[-1])
+
+
+def phase_env() -> str:
+    from hipe_tpu_torch.cli import gpu_name_and_power_limit
+    from hipe_tpu_torch.ops import _build
+
+    if importlib.util.find_spec("triton") is not None:
+        import triton
+
+        triton_version = triton.__version__
+    else:
+        triton_version = "absent"
+    card = gpu_name_and_power_limit()
+    try:
+        nvcc = _run([_build.find_nvcc(), "--version"])
+    except RuntimeError as e:
+        nvcc = str(e)
+    print(f"[1 env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"nvcc '{nvcc}' triton {triton_version} card '{card}'", flush=True)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is False: chip_smoke.py "
+                         "runs only on an NVIDIA GPU")
+    return card
+
+
+def phase_build(card: str) -> None:
+    from hipe_tpu_torch.ops import _build
+    from hipe_tpu_torch.ops.cuda_blur import _kernel_lib
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _kernel_lib()
+    secs = time.perf_counter() - t0
+    log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
+    ptxas = "; ".join(ln.split("info    : ")[-1] for ln in log.splitlines()
+                      if "Used" in ln)
+    print(f"[2 build] {lib} in {secs:.2f} s (0 s: already built); ptxas: "
+          f"{ptxas or 'no report'} [{card}]", flush=True)
+
+
+def plain_chunked(x: torch.Tensor, radius: int, h_pad: bool) -> torch.Tensor:
+    from hipe_tpu_torch.ops.blur import gaussian_blur_planar
+
+    return torch.cat([gaussian_blur_planar(x[i:i + PLAIN_CHUNK], radius, h_pad=h_pad)
+                      for i in range(0, x.shape[0], PLAIN_CHUNK)])
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return max(int((a[i:i + PLAIN_CHUNK].int() - b[i:i + PLAIN_CHUNK].int()).abs().max())
+               for i in range(0, a.shape[0], PLAIN_CHUNK))
+
+
+def phase_kernel_vs_plain(card: str) -> int:
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, out_rows
+    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = gaussian_blur_planar_cuda.launches
+    cases = [((NUM_IMAGES * CHANNELS, SIDE, SIDE), 1, h_pad) for h_pad in (True, False)]
+    cases += [(shape, r, h_pad) for shape in SMALL_SHAPES for r in (1, 2, 3, 4)
+              for h_pad in (True, False) if h_pad or shape[1] > 2 * r]
+    worst, checked = 0, 0
+    for shape, r, h_pad in cases:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+        want = plain_chunked(x, r, h_pad)
+        ho = out_rows(shape[1], r, h_pad)
+        for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, ho}):
+            got = gaussian_blur_planar_cuda(x, r, h_pad=h_pad, rows_per_block=rpb)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"K1 != plain: shape {shape} r={r} h_pad={h_pad} "
+                                     f"rows_per_block={rpb}: max-abs {err}")
+            worst, checked = max(worst, err), checked + 1
+        del x, want, got
+    grew = gaussian_blur_planar_cuda.launches - before
+    if grew != checked:
+        raise AssertionError(f"launch counter grew by {grew}, expected {checked}")
+    print(f"[3 K1 vs plain] {checked} launches over {len(cases)} (shape, radius, "
+          f"h_pad) cases, max_abs_err {worst} [{card}]", flush=True)
+    return worst
+
+
+def cuda_ms(fn, reps: int = 1) -> float:
+    fn()  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_main_path(card: str) -> dict:
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
+    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+
+    gaussian_blur_planar_cuda.launches = 0
+    runner = DeviceStreamRunner("blur3", num_images=NUM_IMAGES, device="cuda")
+    timings = runner.autotune()
+    err = runner.verify_max_abs_err()
+    sessions = [runner.measure_throughput(passes=PASSES, reps=3)
+                for _ in range(SESSIONS)]
+    launches = gaussian_blur_planar_cuda.launches
+    if err != 0:
+        raise AssertionError(f"main path max_abs_err {err} vs the NumPy oracle")
+    timed = SESSIONS * 3 * PASSES
+    if launches < timed:
+        raise AssertionError(f"K1 launched {launches} times on the main path, "
+                             f"fewer than the {timed} passes timed")
+    # The stream after 3 chained passes, against the plain version's.
+    got = runner.run_passes(3)
+    want = runner.stream
+    for _ in range(3):
+        want = plain_chunked(want, 1, True)
+    chain_err = max_abs_err(got, want)
+    if chain_err:
+        raise AssertionError(f"3 chained passes differ from the plain version: {chain_err}")
+    plain_ms = cuda_ms(lambda: plain_chunked(runner.stream, 1, True))
+    by_rate = sorted(sessions, key=lambda s: s["img_per_s"])
+    med = by_rate[len(by_rate) // 2]
+    print(f"[4 main path] blur3 {NUM_IMAGES}x{SIDE}x{SIDE}x{CHANNELS}: autotune "
+          f"{ {k: round(v * 1e3, 4) for k, v in timings.items()} } ms/pass, chose "
+          f"{runner.tuning['chosen']}; max_abs_err {err}; sessions img/s "
+          f"{[round(s['img_per_s'], 1) for s in by_rate]}; median per-pass "
+          f"{med['per_pass_s'] * 1e3:.4f} ms, {med['img_per_s']:.1f} img/s, "
+          f"{med['gb_per_s']:.1f} GB/s; plain per-pass {plain_ms:.4f} ms; "
+          f"K1 launches {launches} [{card}]", flush=True)
+    return {"launches": launches, "ms": med["per_pass_s"] * 1e3,
+            "plain_ms": plain_ms, "chain_err": chain_err}
+
+
+def main() -> int:
+    card = phase_env()
+    phase_build(card)
+    k1_err = phase_kernel_vs_plain(card)
+    main_res = phase_main_path(card)
+    print(json.dumps({"kernels": [{
+        "name": "blur_planar_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/blur_planar.cu",
+        "replaces": "hipe_tpu/ops/pallas_blur.py:109",
+        "also_replaces": ["hipe_tpu/ops/pallas_blur.py:56",
+                          "hipe_tpu/ops/pallas_blur.py:923 (gaussian stage)"],
+        "launches": main_res["launches"],
+        "max_abs_err": max(k1_err, main_res["chain_err"]),
+        "ms": main_res["ms"],
+        "plain_ms": main_res["plain_ms"],
+    }]}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,30 @@
+"""hipe_tpu_torch — the PyTorch/CUDA port of hipe_tpu for NVIDIA Hopper.
+
+A second package beside :mod:`hipe_tpu` (the JAX reference, which stays as
+it is). It mirrors that package's layout so each module's counterpart is
+easy to find:
+
+- :mod:`hipe_tpu_torch.ops.blur` — the plain PyTorch integer blur;
+- :mod:`hipe_tpu_torch.ops.cuda_blur` — the hand-written CUDA stencil
+  (``csrc/blur_planar.cu``) that replaces the Pallas blur kernels;
+- :mod:`hipe_tpu_torch.models.pipelines` — ``Pipeline``/``PIPELINES``;
+- :mod:`hipe_tpu_torch.runtime.device_stream` — ``DeviceStreamRunner``,
+  the device-resident 5000-image stream.
+
+The package imports ``torch`` and never ``jax``. Importing it loads nothing
+heavy: the exports below resolve on first use.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name == "DeviceStreamRunner":
+        from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+
+        return DeviceStreamRunner
+    if name in ("Pipeline", "PIPELINES"):
+        from hipe_tpu_torch.models import pipelines
+
+        return getattr(pipelines, name)
+    raise AttributeError(name)

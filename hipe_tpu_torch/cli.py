@@ -1,0 +1,117 @@
+"""Command line of the PyTorch/CUDA port (counterpart of ``hipe_tpu.cli``).
+
+This slice carries the ``stream`` subcommand, the device-resident stream on
+an NVIDIA GPU::
+
+    python -m hipe_tpu_torch.cli stream blur3 --num-images 5000 --json
+
+The stream's image is ``checker_image(256, 256, 3, seed=0)``; the port has
+no JPEG codec yet. Without a CUDA device the command fails: it never runs
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+IMAGE_NAME = "checker_image(256,256,3,seed=0)"
+
+
+def gpu_name_and_power_limit() -> str:
+    """``nvidia-smi``'s name and power limit of the cards, one line each."""
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable ({type(e).__name__})"
+    return proc.stdout.strip() or proc.stderr.strip()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="hipe_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="command", required=True)
+    st = sub.add_parser("stream", help="device-resident stream on the GPU")
+    st.add_argument("pipeline_name", nargs="?", default="blur3")
+    st.add_argument("--num-images", type=int, default=5000)
+    st.add_argument("--passes", type=int, default=10)
+    st.add_argument("--no-autotune", action="store_true",
+                    help="skip the measured rows_per_block selection")
+    st.add_argument("--json", action="store_true",
+                    help="print one JSON result line")
+    st.add_argument("--device", default="cuda",
+                    help="CUDA device to run on (default: cuda)")
+    return p
+
+
+def _main_stream(args) -> int:
+    import torch
+
+    from hipe_tpu_torch.models.pipelines import PIPELINES
+    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+    from hipe_tpu_torch.utils.images import checker_image
+
+    device = torch.device(args.device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise SystemExit(
+            f"Error: the stream runs on a CUDA device; got --device "
+            f"{args.device} with torch.cuda.is_available() = "
+            f"{torch.cuda.is_available()}")
+    if args.pipeline_name not in PIPELINES:
+        raise SystemExit(f"Error: unknown pipeline {args.pipeline_name!r} "
+                         f"(ported: {sorted(PIPELINES)})")
+    card = gpu_name_and_power_limit()
+    image = checker_image(256, 256, 3, seed=0)
+    h, w, c = image.shape
+    print("========== DEVICE-STREAM CONFIGURATION ==========")
+    print(f"Pipeline: {args.pipeline_name}")
+    print(f"Stream: {args.num_images} images of {w}x{h}x{c} ({IMAGE_NAME})")
+    print(f"Card: {card}")
+    runner = DeviceStreamRunner(args.pipeline_name, num_images=args.num_images,
+                                image=image, device=device)
+    if not args.no_autotune:
+        timings = runner.autotune()
+        for label, t in sorted(timings.items(), key=lambda kv: kv[1]):
+            print(f"  autotune {label:22s} {t * 1e3:8.3f} ms/pass")
+        print(f"Chosen config: {runner.tuning['chosen']}")
+        for label, exc in runner.tuning["skipped"].items():
+            print(f"  autotune skipped {label}: {exc}")
+    err = runner.verify_max_abs_err()
+    res = runner.measure_throughput(passes=args.passes, reps=3)
+    print("\n========== DEVICE-STREAM RESULTS ==========")
+    print(f"   Max-abs error vs oracle: {err}")
+    print(f"   Per-pass time: {res['per_pass_s'] * 1e3:.4f} ms")
+    print(f"   Overall throughput: {res['mpix_per_s']:.2f} Megapixels/sec")
+    print(f"   Images per second: {res['img_per_s']:.2f}")
+    print(f"   Effective memory bandwidth: {res['gb_per_s']:.1f} GB/s")
+    if args.json:
+        print(json.dumps({
+            "pipeline": args.pipeline_name,
+            "num_images": args.num_images,
+            "image": IMAGE_NAME,
+            "img_per_s": res["img_per_s"],
+            "per_pass_ms": res["per_pass_s"] * 1e3,
+            "gb_per_s": res["gb_per_s"],
+            "max_abs_err": err,
+            "config": (runner.tuning or {}).get("chosen", "default"),
+            "device": torch.cuda.get_device_name(device),
+            "card": card,
+        }))
+    # Exact equality is the contract: any nonzero error is a kernel fault.
+    return 0 if err == 0 else 1
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command == "stream":
+        return _main_stream(args)
+    raise AssertionError(args.command)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+// K1: exact integer separable binomial blur over planar uint8 planes.
+//
+// Replaces these Pallas TPU kernels of hipe_tpu/ops/pallas_blur.py:
+//   a. _blur_mxu_kernel (gaussian_blur_planar_pallas, path="mxu"),
+//   b. _blur_kernel (gaussian_blur_planar_pallas, path="vpu"),
+//   c. the gaussian stage of _chain_mxu_kernel (_mxu_stage / _mxu_stage_i8,
+//      reached through filter_chain_planar_pallas).
+// The TPU kernels fold the clamp and the 1/16^r into a bf16 or int8 band
+// matrix for the matrix unit. Here the same integers are summed directly:
+// out = (sum_ky t[ky] * sum_kx t[kx] * x[clamp(y+ky-r)][clamp(x+kx-r)]) >> 4r,
+// t = C(2r, k). No band matrix, no float, exact by construction.
+//
+// What bounds it on an H100: device memory. One pass over the 5000-image
+// 256x256 RGB stream reads 983 MB and writes 983 MB; at the data sheet's
+// 3.35 TB/s that is ~0.59 ms a pass. The arithmetic, 2(2r+1) integer
+// multiply-adds a pixel, is far below the card's integer rate, and the
+// stream is 20x the 50 MB L2, so every pass is cold.
+//
+// What the design does about it: every input byte comes from device memory
+// once (plus 2r halo rows per tile of rows_per_block rows) and every output
+// byte goes back once, with consecutive threads on consecutive bytes. The
+// W pass reads its 2r+1 taps of a row through L1 and keeps the row sums in
+// shared memory as uint16 (at most 255 * 2^2r = 65280 for r <= 4), so the
+// H pass takes its taps from shared memory, not device memory. Taller tiles
+// cut the halo re-reads (2r / rows_per_block); the runner sweeps
+// rows_per_block. Output goes to a separate buffer: a tile's halo rows
+// belong to its neighbour's tile, so writing in place would race.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
+
+// Binomial taps C(2r, k) for r = 1..4, row r-1. Read at indices fixed at
+// compile time by the unrolled tap loops, so each is a constant operand.
+__constant__ int kTaps[4][9] = {
+    {1, 2, 1},
+    {1, 4, 6, 4, 1},
+    {1, 6, 15, 20, 15, 6, 1},
+    {1, 8, 28, 56, 70, 56, 28, 8, 1},
+};
+
+// One block per (plane, tile of rows_per_block output rows). Staged row i
+// of the tile is input row clamp(y0 + row_off + i, 0, h - 1): row_off is -R
+// in clamp mode and 0 in valid mode, where the clamp never bites.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    blur_planar_u8_kernel(const uint8_t* __restrict__ in,
+                          uint8_t* __restrict__ out, int h, int w, int ho,
+                          int row_off, int rows_per_block, int tiles) {
+  extern __shared__ uint16_t rowsum[];  // (rows + 2R) x w
+  const int plane = blockIdx.x / tiles;
+  const int y0 = (blockIdx.x - plane * tiles) * rows_per_block;
+  const int rows = min(rows_per_block, ho - y0);
+  const uint8_t* src = in + static_cast<size_t>(plane) * h * w;
+  uint8_t* dst = out + (static_cast<size_t>(plane) * ho + y0) * w;
+
+  // W pass: clamp-to-edge along the row, into uint16 row sums.
+  const int staged = (rows + 2 * R) * w;
+  for (int idx = threadIdx.x; idx < staged; idx += kThreads) {
+    const int i = idx / w;
+    const int x = idx - i * w;
+    const int y = min(max(y0 + row_off + i, 0), h - 1);
+    const uint8_t* line = src + static_cast<size_t>(y) * w;
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k <= 2 * R; ++k) {
+      acc += kTaps[R - 1][k] * line[min(max(x + k - R, 0), w - 1)];
+    }
+    rowsum[idx] = static_cast<uint16_t>(acc);
+  }
+  __syncthreads();
+
+  // H pass over the staged rows, then the 2-D normalization >> 4R.
+  const int count = rows * w;
+  for (int idx = threadIdx.x; idx < count; idx += kThreads) {
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k <= 2 * R; ++k) acc += kTaps[R - 1][k] * rowsum[idx + k * w];
+    dst[idx] = static_cast<uint8_t>(acc >> (4 * R));
+  }
+}
+
+template <int R>
+int launch(const uint8_t* in, uint8_t* out, int n, int h, int w, int h_pad,
+           int rows_per_block, cudaStream_t stream) {
+  const int ho = h_pad ? h : h - 2 * R;
+  if (n < 1 || h < 1 || w < 1 || ho < 1 || rows_per_block < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rpb = rows_per_block < ho ? rows_per_block : ho;
+  const int tiles = (ho + rpb - 1) / rpb;
+  const long long blocks = static_cast<long long>(n) * tiles;
+  const size_t smem = static_cast<size_t>(rpb + 2 * R) * w * sizeof(uint16_t);
+  if (blocks > INT_MAX || smem > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > kDefaultSharedBytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        blur_planar_u8_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next launch does not report it
+      return static_cast<int>(e);
+    }
+  }
+  blur_planar_u8_kernel<R><<<static_cast<unsigned>(blocks), kThreads, smem,
+                             stream>>>(in, out, h, w, ho, h_pad ? -R : 0, rpb,
+                                       tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Blur n planes of h x w uint8 from `in` into `out` ((n, h, w) with h_pad,
+// (n, h - 2r, w) without). Launches on `stream`, does not synchronize and
+// allocates nothing. Returns the cudaError_t of the launch as an int.
+extern "C" int hipe_blur_planar_u8(const void* in, void* out, int n, int h,
+                                   int w, int radius, int h_pad,
+                                   int rows_per_block, void* stream) {
+  const auto* src = static_cast<const uint8_t*>(in);
+  auto* dst = static_cast<uint8_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (radius) {
+    case 1: return launch<1>(src, dst, n, h, w, h_pad, rows_per_block, s);
+    case 2: return launch<2>(src, dst, n, h, w, h_pad, rows_per_block, s);
+    case 3: return launch<3>(src, dst, n, h, w, h_pad, rows_per_block, s);
+    case 4: return launch<4>(src, dst, n, h, w, h_pad, rows_per_block, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The CUDA runtime's message for a code returned above.
+extern "C" const char* hipe_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

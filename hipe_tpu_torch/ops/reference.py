@@ -1,0 +1,54 @@
+"""NumPy oracle for the binomial blur (copy of ``hipe_tpu.ops.reference``).
+
+The reference OpenCL kernel (``gaussian_kernel.cl:19-72``) is a 3x3 binomial
+blur with clamp-to-edge borders, fp32 accumulation and a truncating uint8
+store. Every weight is a multiple of 2^-4r and every input a uint8, so that
+pipeline is bit-identical to the integer ``(sum_i w_int_i * x_i) >> 4r``,
+which is what this oracle computes and what every kernel implements.
+
+These two functions are copied rather than imported: importing anything
+from ``hipe_tpu`` imports ``jax``, and the port never does. The tests hold
+the copies equal to the originals.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def binomial_taps(radius: int) -> tuple[np.ndarray, int]:
+    """Integer binomial taps of length 2*radius+1 and the per-axis shift.
+
+    radius=1 -> (1,2,1), shift 2 per axis (4 for the 2D kernel);
+    radius=2 -> (1,4,6,4,1), shift 4; radius=4 -> C(8,k), shift 8.
+    """
+    taps = np.array([1], dtype=np.int64)
+    for _ in range(2 * radius):
+        taps = np.convolve(taps, [1, 1])
+    shift = 2 * radius  # sum(taps) == 2**(2*radius)
+    return taps, shift
+
+
+def _pad_edge(img: np.ndarray, radius: int) -> np.ndarray:
+    pad = [(radius, radius), (radius, radius)] + [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, pad, mode="edge")
+
+
+def gaussian_blur_int_oracle(img: np.ndarray, radius: int = 1) -> np.ndarray:
+    """Integer path: separable ``(colpass(rowpass(x))) >> 2*shift``.
+
+    ``img`` is (H, W) or (H, W, C) uint8; borders clamp to the edge.
+    """
+    if img.dtype != np.uint8:
+        raise TypeError(f"expected uint8, got {img.dtype}")
+    taps, shift = binomial_taps(radius)
+    H, W = img.shape[:2]
+    padded = _pad_edge(img, radius).astype(np.int64)
+    # Row pass (along W), then column pass (along H).
+    row = np.zeros((H + 2 * radius,) + img.shape[1:], dtype=np.int64)
+    for dx in range(2 * radius + 1):
+        row += taps[dx] * padded[:, dx : dx + W]
+    acc = np.zeros(img.shape, dtype=np.int64)
+    for dy in range(2 * radius + 1):
+        acc += taps[dy] * row[dy : dy + H]
+    return (acc >> (2 * shift)).astype(np.uint8)

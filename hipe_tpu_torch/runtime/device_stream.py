@@ -1,0 +1,163 @@
+"""Device-resident stream processing — the serving fast path on the card.
+
+The counterpart of ``hipe_tpu.runtime.device_stream``. The stream of N
+images stays in device memory as planar ``(N*C, H, W)`` uint8; each pass
+blurs the whole stream with one launch of kernel K1, and only checksums and
+the first image return to the host.
+
+Chained passes feed every output into the next pass, alternating between
+two scratch buffers (K1 is out-of-place: a tile's halo rows belong to its
+neighbour, so in-place writes would race). The stream itself is never
+overwritten, so every measurement starts from the same input.
+
+Throughput is timed with CUDA events around ``passes`` chained passes after
+a warm-up; the stream (983 MB at 5000 x 256x256x3) is 20x the H100's 50 MB
+L2, so every pass runs cold, as it would in service.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hipe_tpu_torch.models import pipelines as plib
+from hipe_tpu_torch.ops.cuda_blur import out_rows
+from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
+from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
+
+# K1's launch knob swept by autotune: output rows per block, plus one block
+# per whole plane (appended from the plane height).
+ROWS_PER_BLOCK_CANDIDATES = (8, 16, 32, 64, 128)
+
+
+class DeviceStreamRunner:
+    """Process an N-image stream resident in device memory."""
+
+    def __init__(
+        self,
+        pipeline: plib.Pipeline | str = "blur3",
+        *,
+        num_images: int = 5000,
+        image: np.ndarray | None = None,
+        device: str | torch.device = "cuda",
+        stream: np.ndarray | None = None,
+    ):
+        self.pipeline = plib.get(pipeline)
+        self.num_images = num_images
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but torch.cuda.is_available() is "
+                "False: the stream runs on an NVIDIA GPU (device='cpu' serves "
+                "only the plain-version parity checks)")
+        if image is None:
+            image = checker_image(256, 256, 3, seed=0)
+        self.image = image
+        h, w, c = image.shape
+        self.shape = (h, w, c)
+        n = num_images * c
+        if stream is None:
+            planes = torch.from_numpy(hwc_to_planar(image[None])).to(self.device)
+            # The device-resident stream: distinct buffers per image (the
+            # reference's memcpy stream simulation, in device memory).
+            self.stream = planes.expand(num_images, c, h, w).contiguous().view(n, h, w)
+        else:
+            if stream.dtype != np.uint8 or stream.shape != (n, h, w):
+                raise ValueError(
+                    f"stream must be uint8 {(n, h, w)}, got {stream.dtype} "
+                    f"{stream.shape}")
+            self.stream = torch.tensor(stream, device=self.device)  # a copy
+        # The two buffers chained passes alternate between.
+        self._bufs = (torch.empty_like(self.stream), torch.empty_like(self.stream))
+        self.config = {"rows_per_block": None}
+        self.tuning: dict | None = None
+
+    def _one_pass(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        return self.pipeline.apply_planar(
+            src, rows_per_block=self.config["rows_per_block"], out=dst)
+
+    def run_passes(self, r: int) -> torch.Tensor:
+        """``r`` chained passes from the stream; returns the last output."""
+        x = self.stream
+        for i in range(r):
+            x = self._one_pass(x, self._bufs[i % 2])
+        return x
+
+    def chained(self, r: int) -> int:
+        """Run ``r`` chained passes; the strided checksum of the result.
+
+        The checksum is hipe_tpu's (``sum(out[::97, ::3, ::64])``), so a
+        run here compares exactly with the JAX runner's on the same stream.
+        """
+        out = self.run_passes(r)
+        return int(out[::97, ::3, ::64].sum(dtype=torch.int64))
+
+    def block_candidates(self) -> list[int]:
+        """``rows_per_block`` values to sweep: small tiles, then whole planes."""
+        ho = out_rows(self.shape[0], self.pipeline.radius, True)
+        return sorted({min(k, ho) for k in ROWS_PER_BLOCK_CANDIDATES} | {ho})
+
+    def autotune(self, passes: int = 4, reps: int = 2) -> dict:
+        """Time each ``rows_per_block`` of K1; keep the fastest.
+
+        Returns {label: per_pass_seconds}. A config whose launch fails is
+        recorded in ``self.tuning["skipped"]`` with its message; the sweep
+        raises if none ran. The plain version is never a candidate.
+        """
+        timings: dict[str, float] = {}
+        skipped: dict[str, str] = {}
+        best_label, best_rpb, best_t = None, None, float("inf")
+        for rpb in self.block_candidates():
+            label = f"cuda_rpb{rpb}"
+            self.config = {"rows_per_block": rpb}
+            try:
+                t = self._measure_per_pass(passes=passes, reps=reps)
+            except RuntimeError as e:
+                skipped[label] = f"{type(e).__name__}: {e}"
+                continue
+            timings[label] = t
+            if t < best_t:
+                best_label, best_rpb, best_t = label, rpb, t
+        if best_label is None:
+            raise RuntimeError(f"no autotune config ran: {skipped}")
+        self.config = {"rows_per_block": best_rpb}
+        self.tuning = {"chosen": best_label, "per_pass_s": timings,
+                       "skipped": skipped}
+        return timings
+
+    def verify_max_abs_err(self) -> int:
+        """Max-abs pixel error of the first image vs the NumPy oracle."""
+        c = self.shape[2]
+        got = self._one_pass(self.stream, self._bufs[0])[:c].cpu().numpy()
+        want = hwc_to_planar(
+            gaussian_blur_int_oracle(self.image, self.pipeline.radius)[None])
+        return int(np.max(np.abs(got.astype(int) - want.astype(int))))
+
+    def _measure_per_pass(self, passes: int, reps: int) -> float:
+        """Median over ``reps`` of CUDA-event seconds per chained pass."""
+        if self.device.type != "cuda":
+            raise RuntimeError(
+                f"throughput is timed on a CUDA device, not {self.device}")
+        with torch.cuda.device(self.device):
+            self.run_passes(passes)  # warm-up
+            samples = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                self.run_passes(passes)
+                end.record()
+                end.synchronize()
+                samples.append(start.elapsed_time(end) / 1e3 / passes)
+        return float(np.median(samples))
+
+    def measure_throughput(self, passes: int = 10, reps: int = 3) -> dict:
+        """Steady-state rates from the median per-pass time of ``reps`` runs."""
+        t = self._measure_per_pass(passes=passes, reps=reps)
+        h, w, c = self.shape
+        return {
+            "per_pass_s": t,
+            "img_per_s": self.num_images / t,
+            "mpix_per_s": self.num_images * h * w / t / 1e6,
+            "gb_per_s": 2 * self.num_images * h * w * c / t / 1e9,
+        }

@@ -1,0 +1,30 @@
+"""Image layout utilities (copy of ``hipe_tpu.utils.images``' numpy helpers).
+
+The kernels work on planar ``(N*C, H, W)`` planes, one contiguous plane per
+(image, channel); these convert to and from channels-last batches. There is
+no JPEG loading here: the port's slice carries no codec, and the stream's
+default image is :func:`checker_image`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def hwc_to_planar(batch: np.ndarray) -> np.ndarray:
+    """(B, H, W, C) -> (B*C, H, W): one contiguous plane per image-channel."""
+    b, h, w, c = batch.shape
+    return np.ascontiguousarray(batch.transpose(0, 3, 1, 2)).reshape(b * c, h, w)
+
+
+def planar_to_hwc(planes: np.ndarray, channels: int) -> np.ndarray:
+    """(B*C, H, W) -> (B, H, W, C); inverse of :func:`hwc_to_planar`."""
+    n, h, w = planes.shape
+    b = n // channels
+    return np.ascontiguousarray(planes.reshape(b, channels, h, w).transpose(0, 2, 3, 1))
+
+
+def checker_image(h: int = 64, w: int = 64, c: int = 3, seed: int = 0) -> np.ndarray:
+    """Deterministic random uint8 test image (no file IO needed)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(h, w, c), dtype=np.uint8)

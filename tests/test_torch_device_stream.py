@@ -1,0 +1,115 @@
+"""The port's whole slice on the CPU, held exactly against hipe_tpu's runner.
+
+The JAX runner's materialized stream is handed to the port's runner; after
+chained passes the streams and the strided checksums must be equal. Also:
+importing the port pulls in no JAX, and without CUDA the stream CLI and the
+kernel build fail loudly instead of running on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hipe_tpu.runtime.device_stream import DeviceStreamRunner as JaxRunner
+from hipe_tpu.utils.images import checker_image as jax_checker_image
+from hipe_tpu_torch import cli
+from hipe_tpu_torch.ops import _build
+from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+from hipe_tpu_torch.utils import images as timages
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def runners():
+    image = jax_checker_image(32, 40, 3)
+    jr = JaxRunner("blur3", num_images=4, image=image, use_pallas=False)
+    tr = DeviceStreamRunner("blur3", num_images=4, image=image, device="cpu",
+                            stream=np.asarray(jr.stream))
+    return jr, tr
+
+
+def test_checker_image_and_layouts_match_hipe_tpu():
+    from hipe_tpu.utils import images as jimages
+
+    img = timages.checker_image(32, 40, 3, seed=7)
+    np.testing.assert_array_equal(img, jimages.checker_image(32, 40, 3, seed=7))
+    batch = np.stack([img, timages.checker_image(32, 40, 3, seed=8)])
+    planes = timages.hwc_to_planar(batch)
+    np.testing.assert_array_equal(planes, jimages.hwc_to_planar(batch))
+    np.testing.assert_array_equal(timages.planar_to_hwc(planes, 3), batch)
+
+
+def test_materialized_stream_matches_jax_runner(runners):
+    jr, _ = runners
+    own = DeviceStreamRunner("blur3", num_images=4, image=jr.image, device="cpu")
+    np.testing.assert_array_equal(own.stream.numpy(), np.asarray(jr.stream))
+
+
+@pytest.mark.parametrize("r", [1, 3])
+def test_chained_passes_match_jax_runner(runners, r):
+    jr, tr = runners
+    import jax
+
+    want_stream = np.asarray(jax.lax.fori_loop(
+        0, r, lambda i, x: jr._one_pass(x), jr.stream))
+    got_sum = tr.chained(r)
+    np.testing.assert_array_equal(tr.run_passes(r).numpy(), want_stream)
+    assert got_sum == jr._sync(jr._chained(jr.stream, r))
+    # The stream itself is never overwritten by the passes.
+    np.testing.assert_array_equal(tr.stream.numpy(), np.asarray(jr.stream))
+
+
+def test_verify_max_abs_err_is_zero(runners):
+    _, tr = runners
+    assert tr.verify_max_abs_err() == 0
+
+
+def test_runner_rejects_a_stream_of_the_wrong_shape():
+    image = timages.checker_image(8, 8, 3)
+    with pytest.raises(ValueError, match="stream"):
+        DeviceStreamRunner("blur3", num_images=2, image=image, device="cpu",
+                           stream=np.zeros((5, 8, 8), np.uint8))
+
+
+def test_runner_times_only_on_cuda(runners):
+    _, tr = runners
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tr.measure_throughput(passes=1, reps=1)
+    with pytest.raises(RuntimeError, match="no autotune config ran"):
+        tr.autotune(passes=1, reps=1)
+
+
+def test_importing_the_port_imports_no_jax():
+    code = ("import sys, hipe_tpu_torch, hipe_tpu_torch.cli, "
+            "hipe_tpu_torch.runtime.device_stream, hipe_tpu_torch.ops.cuda_blur, "
+            "hipe_tpu_torch.ops._build; "
+            "hipe_tpu_torch.DeviceStreamRunner, hipe_tpu_torch.PIPELINES; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m.startswith('hipe_tpu.') or m == 'hipe_tpu' "
+            "for m in sys.modules), 'hipe_tpu imported'")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the CLI would run")
+    with pytest.raises(SystemExit, match="CUDA"):
+        cli.main(["stream", "blur3", "--num-images", "2"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        DeviceStreamRunner("blur3", num_images=2)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()

@@ -1,0 +1,51 @@
+"""The port's Pipeline against hipe_tpu's, exactly, for blur3/5/7/9."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hipe_tpu.models import pipelines as jplib
+from hipe_tpu_torch.models import pipelines as tplib
+
+NAMES = ["blur3", "blur5", "blur7", "blur9"]
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+@pytest.mark.parametrize("h_pad", [True, False])
+@pytest.mark.parametrize("name", NAMES)
+def test_apply_planar_matches_jax_pipeline(name, h_pad):
+    x = _rng(1).integers(0, 256, (6, 32, 40), dtype=np.uint8)
+    got = tplib.get(name).apply_planar(torch.from_numpy(x), h_pad=h_pad).numpy()
+    jpipe = jplib.get(name)
+    want_xla = np.asarray(jpipe.apply_planar(jnp.asarray(x), use_pallas=False, h_pad=h_pad))
+    want_pallas = np.asarray(jpipe.apply_planar(
+        jnp.asarray(x), use_pallas=True, interpret=True, h_pad=h_pad))
+    np.testing.assert_array_equal(got, want_xla)
+    np.testing.assert_array_equal(got, want_pallas)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_call_nhwc_matches_jax_pipeline(name):
+    x = _rng(2).integers(0, 256, (2, 21, 19, 3), dtype=np.uint8)
+    got = tplib.PIPELINES[name](torch.from_numpy(x)).numpy()
+    want = jax.jit(jplib.PIPELINES[name])(jnp.asarray(x))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_registry_and_radius():
+    assert set(tplib.PIPELINES) == set(NAMES)
+    for name in NAMES:
+        assert tplib.get(name).radius == jplib.get(name).radius
+        assert tplib.get(name).filters == jplib.get(name).filters
+
+
+@pytest.mark.parametrize("name", ["median", "sharpen", "chain", "equalize", "nope"])
+def test_unported_pipelines_raise(name):
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        tplib.get(name)

@@ -7,16 +7,22 @@ Phases, one line each:
 
 1. Environment: torch, CUDA, nvcc, Triton and the card's name and power
    limit. Fails unless ``torch.cuda.is_available()``; never runs on the CPU.
-2. Builds kernel K1 (``hipe_tpu_torch/csrc/blur_planar.cu``) from the
-   checkout's sources.
+2. Builds kernels K1 (``hipe_tpu_torch/csrc/blur_planar.cu``) and K2
+   (``hipe_tpu_torch/csrc/chain_planar.cu``) from the checkout's sources.
 3. Holds K1 against its plain PyTorch version on distinct random planes:
    radius 1-4, clamp and valid modes, ragged shapes, one full-stream pass,
    and every ``rows_per_block`` the autotune sweeps. Max-abs error must be 0.
-4. The main path: the 5000-image 256x256x3 blur3 stream through
+4. Holds K2 against its plain PyTorch chain the same way: band and point
+   chains (a registered LUT among them), clamp and valid modes, ragged
+   shapes, the full stream for ``chain``, every ``rows_per_block``.
+5. The blur3 main path: the 5000-image 256x256x3 stream through
    ``DeviceStreamRunner`` (autotune, verify against the NumPy oracle, three
-   throughput sessions), with K1's launch count taken over that run alone.
-   The plain version's per-pass time on the same stream is timed for the
-   record.
+   throughput sessions), with the launch counts taken over that run alone.
+6. The chain main path (blur->sharpen->edge), the same way, verified
+   against the pipeline's plain path.
+Each main path also compares the stream after 3 chained passes with the
+plain version's and times the plain version's pass for the record; K1 must
+not run on the chain path, nor K2 on the blur3 path.
 
 Then one JSON line of per-kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -45,6 +51,19 @@ SESSIONS = 3
 # for the whole (15000, 256, 256) stream would be ~3.9 GB each.
 PLAIN_CHUNK = 1000
 SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1))
+LUT_NAME = "dim"  # brightness_lut(0.7), registered in phase 4
+K2_CHAINS = (
+    ("gaussian3", "sharpen", "edge"),
+    ("sharpen",),
+    ("edge",),
+    ("invert",),
+    ("sharpen", "invert"),
+    ("gaussian5", "solarize"),
+    ("posterize4", "gaussian9", "edge"),
+    ("gaussian7",),
+    (LUT_NAME, "gaussian3"),
+    ("posterize1", "edge"),
+)
 
 
 def _run(cmd: list[str]) -> str:
@@ -80,12 +99,12 @@ def phase_env() -> str:
 
 
 def phase_build(card: str) -> None:
-    from hipe_tpu_torch.ops import _build
-    from hipe_tpu_torch.ops.cuda_blur import _kernel_lib
+    from hipe_tpu_torch.ops import _build, cuda_blur, cuda_chain
 
     t0 = time.perf_counter()
     lib = _build.build()
-    _kernel_lib()
+    cuda_blur._kernel_lib()
+    cuda_chain._kernel_lib()
     secs = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
     ptxas = "; ".join(ln.split("info    : ")[-1] for ln in log.splitlines()
@@ -94,10 +113,12 @@ def phase_build(card: str) -> None:
           f"{ptxas or 'no report'} [{card}]", flush=True)
 
 
-def plain_chunked(x: torch.Tensor, radius: int, h_pad: bool) -> torch.Tensor:
-    from hipe_tpu_torch.ops.blur import gaussian_blur_planar
+def plain_chunked(x: torch.Tensor, names: tuple, h_pad: bool = True) -> torch.Tensor:
+    """The plain PyTorch chain, in chunks of planes (its int32 temporaries)."""
+    from hipe_tpu_torch.ops.blur import filter_chain
 
-    return torch.cat([gaussian_blur_planar(x[i:i + PLAIN_CHUNK], radius, h_pad=h_pad)
+    return torch.cat([filter_chain(x[i:i + PLAIN_CHUNK], names, h_axis=-2, w_axis=-1,
+                                   h_pad=h_pad)
                       for i in range(0, x.shape[0], PLAIN_CHUNK)])
 
 
@@ -121,7 +142,7 @@ def phase_kernel_vs_plain(card: str) -> int:
     worst, checked = 0, 0
     for shape, r, h_pad in cases:
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
-        want = plain_chunked(x, r, h_pad)
+        want = plain_chunked(x, (f"gaussian{2 * r + 1}",), h_pad)
         ho = out_rows(shape[1], r, h_pad)
         for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, ho}):
             got = gaussian_blur_planar_cuda(x, r, h_pad=h_pad, rows_per_block=rpb)
@@ -140,6 +161,40 @@ def phase_kernel_vs_plain(card: str) -> int:
     return worst
 
 
+def phase_k2_vs_plain(card: str) -> int:
+    from hipe_tpu_torch.ops.blur import brightness_lut, chain_radius, register_lut_filter
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+
+    register_lut_filter(LUT_NAME, brightness_lut(0.7))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    before = filter_chain_planar_cuda.launches
+    chain = K2_CHAINS[0]
+    cases = [((NUM_IMAGES * CHANNELS, SIDE, SIDE), chain, h_pad) for h_pad in (True, False)]
+    cases += [(shape, names, h_pad) for shape in SMALL_SHAPES for names in K2_CHAINS
+              for h_pad in (True, False) if h_pad or shape[1] > 2 * chain_radius(names)]
+    worst, checked = 0, 0
+    for shape, names, h_pad in cases:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+        want = plain_chunked(x, names, h_pad)
+        for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, want.shape[1]}):
+            got = filter_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"K2 != plain: shape {shape} {names} h_pad={h_pad} "
+                                     f"rows_per_block={rpb}: max-abs {err}")
+            worst, checked = max(worst, err), checked + 1
+        del x, want, got
+    grew = filter_chain_planar_cuda.launches - before
+    if grew != checked:
+        raise AssertionError(f"launch counter grew by {grew}, expected {checked}")
+    print(f"[4 K2 vs plain] {checked} launches over {len(cases)} (shape, chain, "
+          f"h_pad) cases, max_abs_err {worst} [{card}]", flush=True)
+    return worst
+
+
 def cuda_ms(fn, reps: int = 1) -> float:
     fn()  # warm-up
     start = torch.cuda.Event(enable_timing=True)
@@ -152,42 +207,56 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_main_path(card: str) -> dict:
+def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
+    """Drive one pipeline's 5000-image stream; the launch counts over it alone."""
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 
     gaussian_blur_planar_cuda.launches = 0
-    runner = DeviceStreamRunner("blur3", num_images=NUM_IMAGES, device="cuda")
+    filter_chain_planar_cuda.launches = 0
+    runner = DeviceStreamRunner(pipeline, num_images=NUM_IMAGES, device="cuda")
     timings = runner.autotune()
     err = runner.verify_max_abs_err()
     sessions = [runner.measure_throughput(passes=PASSES, reps=3)
                 for _ in range(SESSIONS)]
-    launches = gaussian_blur_planar_cuda.launches
+    counts = {"K1": gaussian_blur_planar_cuda.launches,
+              "K2": filter_chain_planar_cuda.launches}
+    kernel = "K1" if runner.pipeline.single_gaussian else "K2"
+    other = "K2" if kernel == "K1" else "K1"
     if err != 0:
-        raise AssertionError(f"main path max_abs_err {err} vs the NumPy oracle")
+        raise AssertionError(f"{pipeline} main path max_abs_err {err}")
     timed = SESSIONS * 3 * PASSES
-    if launches < timed:
-        raise AssertionError(f"K1 launched {launches} times on the main path, "
-                             f"fewer than the {timed} passes timed")
+    if counts[kernel] < timed:
+        raise AssertionError(f"{kernel} launched {counts[kernel]} times on the {pipeline} "
+                             f"main path, fewer than the {timed} passes timed")
+    if counts[other]:
+        raise AssertionError(f"{other} launched {counts[other]} times on the {pipeline} "
+                             "main path, which is not its kernel's")
     # The stream after 3 chained passes, against the plain version's.
+    names = runner.pipeline.filters
     got = runner.run_passes(3)
     want = runner.stream
     for _ in range(3):
-        want = plain_chunked(want, 1, True)
+        want = plain_chunked(want, names)
     chain_err = max_abs_err(got, want)
     if chain_err:
-        raise AssertionError(f"3 chained passes differ from the plain version: {chain_err}")
-    plain_ms = cuda_ms(lambda: plain_chunked(runner.stream, 1, True))
+        raise AssertionError(f"3 chained {pipeline} passes differ from the plain "
+                             f"version: {chain_err}")
+    del want
+    plain_ms = cuda_ms(lambda: plain_chunked(runner.stream, names))
     by_rate = sorted(sessions, key=lambda s: s["img_per_s"])
     med = by_rate[len(by_rate) // 2]
-    print(f"[4 main path] blur3 {NUM_IMAGES}x{SIDE}x{SIDE}x{CHANNELS}: autotune "
-          f"{ {k: round(v * 1e3, 4) for k, v in timings.items()} } ms/pass, chose "
-          f"{runner.tuning['chosen']}; max_abs_err {err}; sessions img/s "
+    print(f"[{phase} main path] {pipeline} {names} {NUM_IMAGES}x{SIDE}x{SIDE}x{CHANNELS}: "
+          f"autotune { {k: round(v * 1e3, 4) for k, v in timings.items()} } ms/pass, "
+          f"chose {runner.tuning['chosen']}; max_abs_err {err}; sessions img/s "
           f"{[round(s['img_per_s'], 1) for s in by_rate]}; median per-pass "
           f"{med['per_pass_s'] * 1e3:.4f} ms, {med['img_per_s']:.1f} img/s, "
           f"{med['gb_per_s']:.1f} GB/s; plain per-pass {plain_ms:.4f} ms; "
-          f"K1 launches {launches} [{card}]", flush=True)
-    return {"launches": launches, "ms": med["per_pass_s"] * 1e3,
+          f"{kernel} launches {counts[kernel]} [{card}]", flush=True)
+    del runner, got
+    torch.cuda.empty_cache()
+    return {"launches": counts[kernel], "ms": med["per_pass_s"] * 1e3,
             "plain_ms": plain_ms, "chain_err": chain_err}
 
 
@@ -195,18 +264,29 @@ def main() -> int:
     card = phase_env()
     phase_build(card)
     k1_err = phase_kernel_vs_plain(card)
-    main_res = phase_main_path(card)
+    k2_err = phase_k2_vs_plain(card)
+    blur3 = phase_main_path(card, "5", "blur3")
+    chain = phase_main_path(card, "6", "chain")
     print(json.dumps({"kernels": [{
         "name": "blur_planar_u8",
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/blur_planar.cu",
         "replaces": "hipe_tpu/ops/pallas_blur.py:109",
         "also_replaces": ["hipe_tpu/ops/pallas_blur.py:56",
-                          "hipe_tpu/ops/pallas_blur.py:923 (gaussian stage)"],
-        "launches": main_res["launches"],
-        "max_abs_err": max(k1_err, main_res["chain_err"]),
-        "ms": main_res["ms"],
-        "plain_ms": main_res["plain_ms"],
+                          "hipe_tpu/ops/pallas_blur.py:923 (single-gaussian chains)"],
+        "launches": blur3["launches"],
+        "max_abs_err": max(k1_err, blur3["chain_err"]),
+        "ms": blur3["ms"],
+        "plain_ms": blur3["plain_ms"],
+    }, {
+        "name": "chain_planar_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/chain_planar.cu",
+        "replaces": "hipe_tpu/ops/pallas_blur.py:923",
+        "launches": chain["launches"],
+        "max_abs_err": max(k2_err, chain["chain_err"]),
+        "ms": chain["ms"],
+        "plain_ms": chain["plain_ms"],
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

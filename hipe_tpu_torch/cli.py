@@ -1,9 +1,13 @@
 """Command line of the PyTorch/CUDA port (counterpart of ``hipe_tpu.cli``).
 
 This slice carries the ``stream`` subcommand, the device-resident stream on
-an NVIDIA GPU::
+an NVIDIA GPU. It takes a pipeline name, a bare stage name or a comma-joined
+chain of stages, and ``--lut NAME=SPEC`` registers a LUT stage::
 
     python -m hipe_tpu_torch.cli stream blur3 --num-images 5000 --json
+    python -m hipe_tpu_torch.cli stream chain --num-images 5000 --json
+    python -m hipe_tpu_torch.cli stream gaussian3,sharpen,edge --json
+    python -m hipe_tpu_torch.cli stream dim,gaussian3 --lut dim=brightness:0.7
 
 The stream's image is ``checker_image(256, 256, 3, seed=0)``; the port has
 no JPEG codec yet. Without a CUDA device the command fails: it never runs
@@ -37,7 +41,16 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
     st = sub.add_parser("stream", help="device-resident stream on the GPU")
-    st.add_argument("pipeline_name", nargs="?", default="blur3")
+    st.add_argument("pipeline_name", nargs="?", default="blur3",
+                    help="a pipeline, a stage name, or a comma-joined chain "
+                         "of stages")
+    st.add_argument(
+        "--lut", action="append", metavar="NAME=SPEC",
+        help="register a 256-entry LUT as a chainable radius-0 point stage. "
+             "SPEC is brightness:F (PIL ImageEnhance.Brightness, bit-exact), "
+             "gamma:G, solarize:T (PIL threshold), or 256 comma-separated "
+             "uint8 values. Repeatable. Example: --lut dim=brightness:0.7 "
+             "dim,gaussian3")
     st.add_argument("--num-images", type=int, default=5000)
     st.add_argument("--passes", type=int, default=10)
     st.add_argument("--no-autotune", action="store_true",
@@ -49,30 +62,70 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _register_cli_luts(specs) -> str | None:
+    """Register --lut NAME=SPEC point stages; returns an error or None."""
+    import numpy as np
+
+    from hipe_tpu_torch.ops.blur import (brightness_lut, gamma_lut,
+                                         register_lut_filter, solarize_lut)
+
+    for raw in specs or ():
+        head, eq, body = raw.partition("=")
+        try:
+            if not eq or not head:
+                raise ValueError("expected NAME=brightness:F | NAME=gamma:G | "
+                                 "NAME=solarize:T | NAME=v0,v1,...,v255")
+            kind, sep, arg = body.partition(":")
+            if sep and kind == "brightness":
+                lut = brightness_lut(float(arg))
+            elif sep and kind == "gamma":
+                lut = gamma_lut(float(arg))
+            elif sep and kind == "solarize":
+                lut = solarize_lut(int(arg))
+            elif sep:
+                raise ValueError(f"unknown LUT constructor {kind!r} "
+                                 "(brightness:F, gamma:G, or solarize:T)")
+            else:
+                lut = np.array([int(v) for v in body.split(",")])
+            register_lut_filter(head, lut)
+        except ValueError as e:
+            return f"Error: bad --lut {raw!r}: {e}"
+    return None
+
+
 def _main_stream(args) -> int:
     import torch
 
-    from hipe_tpu_torch.models.pipelines import PIPELINES
+    from hipe_tpu_torch.models import pipelines as plib
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
     from hipe_tpu_torch.utils.images import checker_image
 
+    err = _register_cli_luts(args.lut)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
+    spec = args.pipeline_name
+    try:
+        pipeline = plib.get(tuple(spec.split(",")) if "," in spec else spec)
+    except (KeyError, ValueError) as e:
+        msg = e.args[0] if e.args else str(e)
+        print(f"Error: {msg} (a pipeline, a stage name, or a comma-joined "
+              "chain of stages)", file=sys.stderr)
+        return 1
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise SystemExit(
             f"Error: the stream runs on a CUDA device; got --device "
             f"{args.device} with torch.cuda.is_available() = "
             f"{torch.cuda.is_available()}")
-    if args.pipeline_name not in PIPELINES:
-        raise SystemExit(f"Error: unknown pipeline {args.pipeline_name!r} "
-                         f"(ported: {sorted(PIPELINES)})")
     card = gpu_name_and_power_limit()
     image = checker_image(256, 256, 3, seed=0)
     h, w, c = image.shape
     print("========== DEVICE-STREAM CONFIGURATION ==========")
-    print(f"Pipeline: {args.pipeline_name}")
+    print(f"Pipeline: {args.pipeline_name} (stages {', '.join(pipeline.filters)})")
     print(f"Stream: {args.num_images} images of {w}x{h}x{c} ({IMAGE_NAME})")
     print(f"Card: {card}")
-    runner = DeviceStreamRunner(args.pipeline_name, num_images=args.num_images,
+    runner = DeviceStreamRunner(pipeline, num_images=args.num_images,
                                 image=image, device=device)
     if not args.no_autotune:
         timings = runner.autotune()
@@ -92,6 +145,7 @@ def _main_stream(args) -> int:
     if args.json:
         print(json.dumps({
             "pipeline": args.pipeline_name,
+            "filters": list(pipeline.filters),
             "num_images": args.num_images,
             "image": IMAGE_NAME,
             "img_per_s": res["img_per_s"],

@@ -3,8 +3,9 @@
 // Replaces these Pallas TPU kernels of hipe_tpu/ops/pallas_blur.py:
 //   a. _blur_mxu_kernel (gaussian_blur_planar_pallas, path="mxu"),
 //   b. _blur_kernel (gaussian_blur_planar_pallas, path="vpu"),
-//   c. the gaussian stage of _chain_mxu_kernel (_mxu_stage / _mxu_stage_i8,
-//      reached through filter_chain_planar_pallas).
+//   c. _chain_mxu_kernel on a one-stage gaussian chain (_mxu_stage /
+//      _mxu_stage_i8, reached through filter_chain_planar_pallas). Every
+//      other chain runs K2, chain_planar.cu.
 // The TPU kernels fold the clamp and the 1/16^r into a bf16 or int8 band
 // matrix for the matrix unit. Here the same integers are summed directly:
 // out = (sum_ky t[ky] * sum_kx t[kx] * x[clamp(y+ky-r)][clamp(x+kx-r)]) >> 4r,

@@ -1,0 +1,320 @@
+// K2: a fused chain of exact integer band and point stages over planar uint8.
+//
+// Replaces the Pallas TPU kernel _chain_mxu_kernel
+// (hipe_tpu/ops/pallas_blur.py:923, both band forms: _mxu_stage, bf16 bands,
+// and _mxu_stage_i8, int8 bands) on its planar entry, filter_chain_planar_pallas.
+// The TPU kernel folds each stage's W pass into a banded matrix for the
+// matrix unit and rolls the H pass. Here every stage is the integer stencil
+// or point op of hipe_tpu/ops/blur.py, summed directly: no band, no float.
+//
+// Stages (one program entry each, any order, up to kMaxStages):
+//   gaussian r (r = 1..4)  (sum_ij C(2r,i) C(2r,j) x) >> 4r
+//   sharpen                clip(5c - u - d - l - r, 0, 255)
+//   edge                   min(|gx| + |gy|, 255), Sobel, gx across columns
+//   invert, solarize       255 - x;  x >= 128 ? 255 - x : x
+//   posterize              x & mask
+//   lut k                  table k of the LUT array, gathered
+// Every stage clamps at the four edges of its own input (clamp mode), so an
+// intermediate is clamped at its own edge rows, as the TPU kernel clamps
+// each stage of the whole plane. Valid mode (h_pad = 0) returns rows
+// [R, H - R) of the clamp-mode result, R = the chain's total radius; there
+// no H clamp ever bites, which is what hipe_tpu's valid-per-stage XLA path
+// computes too.
+//
+// What bounds it on an H100: device memory, while the arithmetic grows with
+// the chain. One pass of the blur->sharpen->edge chain over the 5000-image
+// 256x256 RGB stream reads 983 MB and writes 983 MB, ~0.59 ms at the data
+// sheet's 3.35 TB/s, and per pixel does three stencils (9 + 5 + 8 taps)
+// where the blur does one.
+//
+// What the design does about it: one read and one write a pass. A block
+// owns (plane, tile of rows_per_block output rows); it stages the input
+// rows the tile needs (R halo rows each side) in shared memory, then runs
+// the stages one after another between two uint8 buffers in shared memory,
+// so intermediates never leave the SM (the TPU kernel keeps them in VMEM).
+// Stage k computes rows [y0 - Q_k, y1 + Q_k) clipped to the plane, Q_k
+// being the radius of the stages after it; the last stage writes to device
+// memory. The program travels by value as a kernel parameter: the host
+// checks it and sizes shared memory from it, and no copy precedes a launch.
+// Output goes to a separate buffer: a tile's halo rows belong to its
+// neighbour's tile, so writing in place would race.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxStages = 32;
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
+
+// Stage op codes; hipe_tpu_torch/ops/cuda_chain.py encodes the same values.
+enum Op : int {
+  kGaussian = 0,   // arg: radius 1..4
+  kSharpen = 1,
+  kEdge = 2,
+  kInvert = 3,
+  kSolarize = 4,
+  kPosterize = 5,  // arg: mask
+  kLut = 6,        // arg: table index
+};
+
+struct Program {
+  int n_stages;
+  int op[kMaxStages];
+  int arg[kMaxStages];
+  int after[kMaxStages];  // Q_k: total radius of the stages after stage k
+};
+
+// Binomial taps C(2r, k) for r = 1..4, row r-1.
+__constant__ int kTaps[4][9] = {
+    {1, 2, 1},
+    {1, 4, 6, 4, 1},
+    {1, 6, 15, 20, 15, 6, 1},
+    {1, 8, 28, 56, 70, 56, 28, 8, 1},
+};
+
+// A stage's input: a shared-memory buffer whose row i holds plane row
+// base + i, full width w; the plane has h rows.
+struct Src {
+  const uint8_t* buf;
+  int w;
+  int h;
+  int base;
+
+  __device__ __forceinline__ const uint8_t* row(int y) const {
+    return buf + (min(max(y, 0), h - 1) - base) * w;
+  }
+  __device__ __forceinline__ int at(int y, int x) const {
+    return buf[(y - base) * w + x];
+  }
+};
+
+template <int R>
+struct Gaussian {
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    int acc = 0;
+#pragma unroll
+    for (int dy = 0; dy <= 2 * R; ++dy) {
+      const uint8_t* line = s.row(y + dy - R);
+      int sum = 0;
+#pragma unroll
+      for (int dx = 0; dx <= 2 * R; ++dx) {
+        sum += kTaps[R - 1][dx] * line[min(max(x + dx - R, 0), s.w - 1)];
+      }
+      acc += kTaps[R - 1][dy] * sum;
+    }
+    return acc >> (4 * R);
+  }
+};
+
+// The 3x3 neighbourhood v[dy][dx] of (y, x), clamped, as signed ints.
+__device__ __forceinline__ void load3x3(const Src& s, int y, int x, int v[3][3]) {
+  const int xl = max(x - 1, 0);
+  const int xr = min(x + 1, s.w - 1);
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    const uint8_t* line = s.row(y + dy - 1);
+    v[dy][0] = line[xl];
+    v[dy][1] = line[x];
+    v[dy][2] = line[xr];
+  }
+}
+
+struct Sharpen {
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    int v[3][3];
+    load3x3(s, y, x, v);
+    const int out = 5 * v[1][1] - v[0][1] - v[2][1] - v[1][0] - v[1][2];
+    return min(max(out, 0), 255);
+  }
+};
+
+struct Edge {
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    int v[3][3];
+    load3x3(s, y, x, v);
+    const int gx = (v[0][2] + 2 * v[1][2] + v[2][2]) - (v[0][0] + 2 * v[1][0] + v[2][0]);
+    const int gy = (v[2][0] + 2 * v[2][1] + v[2][2]) - (v[0][0] + 2 * v[0][1] + v[0][2]);
+    return min(abs(gx) + abs(gy), 255);
+  }
+};
+
+struct Invert {
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    return 255 - s.at(y, x);
+  }
+};
+
+struct Solarize {
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    const int v = s.at(y, x);
+    return v >= 128 ? 255 - v : v;
+  }
+};
+
+struct Posterize {
+  int mask;
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    return s.at(y, x) & mask;
+  }
+};
+
+struct Lut {
+  const uint8_t* table;
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    return __ldg(table + s.at(y, x));
+  }
+};
+
+// Rows [r0, r1) of one stage, written to dst row (y - dst_base), width w.
+template <typename Stage>
+__device__ __forceinline__ void run_stage(const Stage& stage, const Src& s,
+                                          uint8_t* dst, int dst_base, int r0,
+                                          int r1) {
+  const int w = s.w;
+  const int count = (r1 - r0) * w;
+  uint8_t* out = dst + (r0 - dst_base) * w;
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const int dy = i / w;
+    const int x = i - dy * w;
+    out[i] = static_cast<uint8_t>(stage(s, r0 + dy, x));
+  }
+}
+
+// One block per (plane, tile of rows_per_block output rows). Output row o
+// of a plane is plane row o + out_off (out_off = 0 clamp, R valid). Both
+// shared buffers hold plane rows [g0 - R, g1 + R) at rows 0.. of the buffer.
+__global__ void __launch_bounds__(kThreads)
+    chain_planar_u8_kernel(const uint8_t* __restrict__ in,
+                           uint8_t* __restrict__ out,
+                           const uint8_t* __restrict__ luts, int h, int w,
+                           int ho, int out_off, int total_r,
+                           int rows_per_block, int tiles, Program prog) {
+  extern __shared__ uint8_t smem[];
+  const int buf_bytes = (rows_per_block + 2 * total_r) * w;
+  uint8_t* bufs[2] = {smem, smem + buf_bytes};
+  const int plane = blockIdx.x / tiles;
+  const int g0 = (blockIdx.x - plane * tiles) * rows_per_block + out_off;
+  const int g1 = min(g0 + rows_per_block, ho + out_off);
+  const int base = g0 - total_r;
+
+  // Stage the input rows [g0 - R, g1 + R) that lie in the plane.
+  {
+    const int a0 = max(base, 0);
+    const int a1 = min(g1 + total_r, h);
+    const int count = (a1 - a0) * w;
+    const uint8_t* src = in + (static_cast<size_t>(plane) * h + a0) * w;
+    uint8_t* dst = bufs[0] + (a0 - base) * w;
+    for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
+  }
+  __syncthreads();
+
+  uint8_t* plane_out = out + static_cast<size_t>(plane) * ho * w;
+  int cur = 0;
+  for (int k = 0; k < prog.n_stages; ++k) {
+    const bool last = k == prog.n_stages - 1;
+    const int q = prog.after[k];
+    const int r0 = max(g0 - q, 0);
+    const int r1 = min(g1 + q, h);
+    const Src s{bufs[cur], w, h, base};
+    uint8_t* dst = last ? plane_out : bufs[cur ^ 1];
+    const int dst_base = last ? out_off : base;
+    const int arg = prog.arg[k];
+    switch (prog.op[k]) {
+      case kGaussian:
+        switch (arg) {
+          case 1: run_stage(Gaussian<1>{}, s, dst, dst_base, r0, r1); break;
+          case 2: run_stage(Gaussian<2>{}, s, dst, dst_base, r0, r1); break;
+          case 3: run_stage(Gaussian<3>{}, s, dst, dst_base, r0, r1); break;
+          default: run_stage(Gaussian<4>{}, s, dst, dst_base, r0, r1); break;
+        }
+        break;
+      case kSharpen: run_stage(Sharpen{}, s, dst, dst_base, r0, r1); break;
+      case kEdge: run_stage(Edge{}, s, dst, dst_base, r0, r1); break;
+      case kInvert: run_stage(Invert{}, s, dst, dst_base, r0, r1); break;
+      case kSolarize: run_stage(Solarize{}, s, dst, dst_base, r0, r1); break;
+      case kPosterize: run_stage(Posterize{arg}, s, dst, dst_base, r0, r1); break;
+      default: run_stage(Lut{luts + 256 * arg}, s, dst, dst_base, r0, r1); break;
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+}
+
+int stage_radius(int op, int arg) {
+  if (op == kGaussian) return arg;
+  return (op == kSharpen || op == kEdge) ? 1 : 0;
+}
+
+bool stage_ok(int op, int arg, int n_luts) {
+  switch (op) {
+    case kGaussian: return arg >= 1 && arg <= 4;
+    case kSharpen: case kEdge: case kInvert: case kSolarize: return true;
+    case kPosterize: return arg >= 0 && arg <= 255;
+    case kLut: return arg >= 0 && arg < n_luts;
+    default: return false;
+  }
+}
+
+}  // namespace
+
+// Run the n_stages-stage program (pairs op, arg in host memory) over n
+// planes of h x w uint8 from `in` into `out`: (n, h, w) with h_pad,
+// (n, h - 2R, w) without, R the chain's total radius. `luts` holds n_luts
+// tables of 256 bytes in device memory (may be null when n_luts is 0).
+// Launches on `stream`, does not synchronize and allocates nothing. Returns
+// the cudaError_t of the launch as an int; a program it does not take (too
+// many stages, an unknown op, a tile beyond shared memory) is refused with
+// an error and leaves no error behind for the next launch.
+extern "C" int hipe_chain_planar_u8(const void* in, void* out, int n, int h,
+                                    int w, const int* program, int n_stages,
+                                    const void* luts, int n_luts, int h_pad,
+                                    int rows_per_block, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (program == nullptr || n_stages < 1 || n_stages > kMaxStages ||
+      n_luts < 0 || (n_luts > 0 && luts == nullptr)) {
+    return invalid;
+  }
+  Program prog{};
+  prog.n_stages = n_stages;
+  for (int k = 0; k < n_stages; ++k) {
+    prog.op[k] = program[2 * k];
+    prog.arg[k] = program[2 * k + 1];
+    if (!stage_ok(prog.op[k], prog.arg[k], n_luts)) return invalid;
+  }
+  int total_r = 0;
+  for (int k = n_stages - 1; k >= 0; --k) {
+    prog.after[k] = total_r;
+    total_r += stage_radius(prog.op[k], prog.arg[k]);
+  }
+  const int ho = h_pad ? h : h - 2 * total_r;
+  if (n < 1 || h < 1 || w < 1 || ho < 1 || rows_per_block < 1 ||
+      static_cast<long long>(h) * w > INT_MAX) {
+    return invalid;
+  }
+  const int rpb = rows_per_block < ho ? rows_per_block : ho;
+  const int tiles = (ho + rpb - 1) / rpb;
+  const long long blocks = static_cast<long long>(n) * tiles;
+  const long long smem = 2LL * (rpb + 2 * total_r) * w;
+  if (blocks > INT_MAX || smem > INT_MAX) return invalid;
+  if (smem > static_cast<long long>(kDefaultSharedBytes)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chain_planar_u8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next launch does not report it
+      return static_cast<int>(e);
+    }
+  }
+  chain_planar_u8_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                           static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<const uint8_t*>(luts), h, w, ho, h_pad ? 0 : total_r,
+      total_r, rpb, tiles, prog);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,11 +4,12 @@ The counterpart of ``hipe_tpu.models.pipelines``. A pipeline is a named
 chain of integer-exact uint8 filters with two paths: :meth:`Pipeline.__call__`
 on channels-last batches (plain PyTorch, any device) and
 :meth:`Pipeline.apply_planar` on planar ``(N, H, W)`` planes, the stream's
-hot path, which runs kernel K1 on the card.
+hot path, which runs the hand-written CUDA kernels on the card.
 
-This slice of the port carries the single-Gaussian pipelines ``blur3/5/7/9``;
-the other pipelines of ``hipe_tpu`` are listed in ROADMAP.md as still to be
-ported.
+Single gaussians (``blur3/5/7/9``) run K1, every other chain of band and
+point stages runs the fused chain kernel K2, as ``hipe_tpu`` routes them to
+its blur and chain kernels. The rank family and the global-statistics
+pipelines of ``hipe_tpu`` are listed in ROADMAP.md as still to be ported.
 """
 
 from __future__ import annotations
@@ -19,41 +20,47 @@ import torch
 
 from hipe_tpu_torch.ops import blur as tblur
 from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
+from hipe_tpu_torch.ops.cuda_chain import check_stages, filter_chain_planar_cuda
 
 
 @dataclasses.dataclass(frozen=True)
 class Pipeline:
-    """A named uint8->uint8 filter chain (one Gaussian stage in this slice)."""
+    """A named uint8->uint8 filter chain of ported stages."""
 
     name: str
     filters: tuple
 
     def __post_init__(self):
-        if len(self.filters) != 1 or self.filters[0] not in tblur.FILTER_RADIUS:
-            raise ValueError(
-                f"pipeline {self.name!r}: only single gaussian stages are "
-                f"ported so far ({sorted(tblur.FILTER_RADIUS)}), got "
-                f"{self.filters!r}; see ROADMAP.md")
+        object.__setattr__(self, "filters", check_stages(self.filters))
 
     @property
     def radius(self) -> int:
         """Total stencil radius (halo rows needed per side for row-split)."""
-        return tblur.FILTER_RADIUS[self.filters[0]]
+        return tblur.chain_radius(self.filters)
+
+    @property
+    def single_gaussian(self) -> bool:
+        """Whether the chain is one gaussian stage (K1's; K2 runs the rest)."""
+        return len(self.filters) == 1 and self.filters[0] in tblur.GAUSSIANS
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Plain path on (..., H, W, C) uint8 batches."""
-        return tblur.gaussian_blur(x, self.radius)
+        return tblur.filter_chain(x, self.filters)
 
     def apply_planar(self, planes: torch.Tensor, *, h_pad: bool = True,
                      rows_per_block: int | None = None,
                      out: torch.Tensor | None = None) -> torch.Tensor:
-        """Planar (N, H, W) path: kernel K1 on the card, plain on the CPU.
+        """Planar (N, H, W) path: K1 or K2 on the card, plain on the CPU.
 
         ``h_pad=False`` treats H as halo-padded by :attr:`radius` rows per
         side and returns the valid interior (row-split shard mode).
         """
-        return gaussian_blur_planar_cuda(
-            planes, self.radius, h_pad=h_pad, rows_per_block=rows_per_block,
+        if self.single_gaussian:
+            return gaussian_blur_planar_cuda(
+                planes, self.radius, h_pad=h_pad,
+                rows_per_block=rows_per_block, out=out)
+        return filter_chain_planar_cuda(
+            planes, self.filters, h_pad=h_pad, rows_per_block=rows_per_block,
             out=out)
 
 
@@ -62,14 +69,47 @@ PIPELINES = {
     "blur5": Pipeline("blur5", ("gaussian5",)),
     "blur7": Pipeline("blur7", ("gaussian7",)),
     "blur9": Pipeline("blur9", ("gaussian9",)),
+    "sharpen": Pipeline("sharpen", ("sharpen",)),
+    "edge": Pipeline("edge", ("edge",)),
+    "chain": Pipeline("chain", ("gaussian3", "sharpen", "edge")),
+    "invert": Pipeline("invert", ("invert",)),
+    "solarize": Pipeline("solarize", ("solarize",)),
+    "posterize": Pipeline("posterize", ("posterize4",)),
 }
 
+# Pipelines of hipe_tpu that this package does not carry yet, beside its
+# unported stages (``tblur.UNPORTED_STAGES``); ROADMAP.md lists their order.
+UNPORTED_PIPELINES = frozenset({
+    "denoise", "open", "close", "equalize", "autocontrast", "contrast",
+    "color", "sharpness", "mode", "mode5",
+})
 
-def get(name: str | Pipeline) -> Pipeline:
-    if isinstance(name, Pipeline):
-        return name
-    if name in PIPELINES:
-        return PIPELINES[name]
-    raise KeyError(
-        f"pipeline {name!r} is not ported to hipe_tpu_torch yet (ported: "
-        f"{sorted(PIPELINES)}); ROADMAP.md lists the order of the rest")
+
+def get(name_or_filters) -> Pipeline:
+    """A pipeline by name, a bare stage name, or a sequence of stage names.
+
+    Follows ``hipe_tpu.models.pipelines.get``: a bare stage is a one-stage
+    pipeline and a sequence is named by joining its stages with ``+``. A
+    name that ``hipe_tpu`` has but this package does not carry yet, and an
+    unknown name, raise ``KeyError``.
+    """
+    if isinstance(name_or_filters, Pipeline):
+        return name_or_filters
+    if isinstance(name_or_filters, str):
+        name = name_or_filters
+        if name in PIPELINES:
+            return PIPELINES[name]
+        if name in tblur.FILTERS:
+            return Pipeline(name, (name,))
+        if name in UNPORTED_PIPELINES or name in tblur.UNPORTED_STAGES:
+            raise KeyError(
+                f"pipeline {name!r} is not ported to hipe_tpu_torch yet "
+                f"(ported: {sorted(PIPELINES)} and the stages "
+                f"{sorted(tblur.FILTERS)}); ROADMAP.md lists the order of "
+                "the rest")
+        raise KeyError(
+            f"unknown pipeline {name!r} (choose from {sorted(PIPELINES)} or "
+            f"the stages {sorted(tblur.FILTERS)}; ROADMAP.md lists what is "
+            "still to be ported)")
+    names = check_stages(name_or_filters)
+    return Pipeline("+".join(names), names)

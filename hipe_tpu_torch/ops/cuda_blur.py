@@ -2,8 +2,9 @@
 
 The counterpart of ``hipe_tpu.ops.pallas_blur``'s planar blur kernels:
 K1 computes what ``_blur_mxu_kernel`` (``path="mxu"``), ``_blur_kernel``
-(``path="vpu"``) and the gaussian stage of ``_chain_mxu_kernel`` compute,
-as an exact integer stencil written for Hopper.
+(``path="vpu"``) and ``_chain_mxu_kernel`` on a one-stage gaussian chain
+compute, as an exact integer stencil written for Hopper. Every other chain
+runs the fused chain kernel K2 (:mod:`hipe_tpu_torch.ops.cuda_chain`).
 
 For a CUDA tensor :func:`gaussian_blur_planar_cuda` launches K1 or raises;
 for a CPU tensor it runs the plain PyTorch version

@@ -1,4 +1,4 @@
-"""NumPy oracle for the binomial blur (copy of ``hipe_tpu.ops.reference``).
+"""NumPy oracles of the stencil filters (copies from ``hipe_tpu.ops.reference``).
 
 The reference OpenCL kernel (``gaussian_kernel.cl:19-72``) is a 3x3 binomial
 blur with clamp-to-edge borders, fp32 accumulation and a truncating uint8
@@ -6,7 +6,7 @@ store. Every weight is a multiple of 2^-4r and every input a uint8, so that
 pipeline is bit-identical to the integer ``(sum_i w_int_i * x_i) >> 4r``,
 which is what this oracle computes and what every kernel implements.
 
-These two functions are copied rather than imported: importing anything
+These functions are copied rather than imported: importing anything
 from ``hipe_tpu`` imports ``jax``, and the port never does. The tests hold
 the copies equal to the originals.
 """
@@ -52,3 +52,38 @@ def gaussian_blur_int_oracle(img: np.ndarray, radius: int = 1) -> np.ndarray:
     for dy in range(2 * radius + 1):
         acc += taps[dy] * row[dy : dy + H]
     return (acc >> (2 * shift)).astype(np.uint8)
+
+
+def sharpen3x3_oracle(img: np.ndarray) -> np.ndarray:
+    """3x3 unsharp kernel [[0,-1,0],[-1,5,-1],[0,-1,0]], clamp to [0,255].
+
+    The reference has no sharpen; this defines the framework's filter-chain
+    semantics (BASELINE.json config 4): integer arithmetic, clamp-to-edge
+    borders, saturating uint8 store.
+    """
+    if img.dtype != np.uint8:
+        raise TypeError(f"expected uint8, got {img.dtype}")
+    H, W = img.shape[:2]
+    p = _pad_edge(img, 1).astype(np.int64)
+    c = p[1 : 1 + H, 1 : 1 + W]
+    up = p[0:H, 1 : 1 + W]
+    dn = p[2 : 2 + H, 1 : 1 + W]
+    lf = p[1 : 1 + H, 0:W]
+    rt = p[1 : 1 + H, 2 : 2 + W]
+    out = 5 * c - up - dn - lf - rt
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def sobel_edge_oracle(img: np.ndarray) -> np.ndarray:
+    """Sobel |gx|+|gy| edge magnitude, clamp to [0,255], per channel."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"expected uint8, got {img.dtype}")
+    H, W = img.shape[:2]
+    p = _pad_edge(img, 1).astype(np.int64)
+
+    def sl(dy, dx):
+        return p[dy : dy + H, dx : dx + W]
+
+    gx = (sl(0, 2) + 2 * sl(1, 2) + sl(2, 2)) - (sl(0, 0) + 2 * sl(1, 0) + sl(2, 0))
+    gy = (sl(2, 0) + 2 * sl(2, 1) + sl(2, 2)) - (sl(0, 0) + 2 * sl(0, 1) + sl(0, 2))
+    return np.clip(np.abs(gx) + np.abs(gy), 0, 255).astype(np.uint8)

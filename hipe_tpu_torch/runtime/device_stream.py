@@ -2,12 +2,13 @@
 
 The counterpart of ``hipe_tpu.runtime.device_stream``. The stream of N
 images stays in device memory as planar ``(N*C, H, W)`` uint8; each pass
-blurs the whole stream with one launch of kernel K1, and only checksums and
-the first image return to the host.
+filters the whole stream with one launch of the pipeline's kernel (K1 for a
+single gaussian, the fused chain kernel K2 for every other chain), and only
+checksums and the first image return to the host.
 
 Chained passes feed every output into the next pass, alternating between
-two scratch buffers (K1 is out-of-place: a tile's halo rows belong to its
-neighbour, so in-place writes would race). The stream itself is never
+two scratch buffers (both kernels are out-of-place: a tile's halo rows
+belong to its neighbour, so in-place writes would race). The stream itself is never
 overwritten, so every measurement starts from the same input.
 
 Throughput is timed with CUDA events around ``passes`` chained passes after
@@ -21,12 +22,11 @@ import numpy as np
 import torch
 
 from hipe_tpu_torch.models import pipelines as plib
-from hipe_tpu_torch.ops.cuda_blur import out_rows
 from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
 from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
 
-# K1's launch knob swept by autotune: output rows per block, plus one block
-# per whole plane (appended from the plane height).
+# The launch knob of K1 and K2 swept by autotune: output rows per block,
+# plus one block per whole plane (appended from the plane height).
 ROWS_PER_BLOCK_CANDIDATES = (8, 16, 32, 64, 128)
 
 
@@ -94,11 +94,11 @@ class DeviceStreamRunner:
 
     def block_candidates(self) -> list[int]:
         """``rows_per_block`` values to sweep: small tiles, then whole planes."""
-        ho = out_rows(self.shape[0], self.pipeline.radius, True)
-        return sorted({min(k, ho) for k in ROWS_PER_BLOCK_CANDIDATES} | {ho})
+        h = self.shape[0]
+        return sorted({min(k, h) for k in ROWS_PER_BLOCK_CANDIDATES} | {h})
 
     def autotune(self, passes: int = 4, reps: int = 2) -> dict:
-        """Time each ``rows_per_block`` of K1; keep the fastest.
+        """Time each ``rows_per_block`` of the pipeline's kernel; keep the fastest.
 
         Returns {label: per_pass_seconds}. A config whose launch fails is
         recorded in ``self.tuning["skipped"]`` with its message; the sweep
@@ -126,11 +126,18 @@ class DeviceStreamRunner:
         return timings
 
     def verify_max_abs_err(self) -> int:
-        """Max-abs pixel error of the first image vs the NumPy oracle."""
+        """Max-abs pixel error of the first image of one pass.
+
+        As in ``hipe_tpu``: against the NumPy oracle for a single gaussian,
+        and against the pipeline's own plain path for every other chain.
+        """
         c = self.shape[2]
         got = self._one_pass(self.stream, self._bufs[0])[:c].cpu().numpy()
-        want = hwc_to_planar(
-            gaussian_blur_int_oracle(self.image, self.pipeline.radius)[None])
+        if self.pipeline.single_gaussian:
+            want_img = gaussian_blur_int_oracle(self.image, self.pipeline.radius)
+        else:
+            want_img = self.pipeline(torch.from_numpy(self.image)).numpy()
+        want = hwc_to_planar(want_img[None])
         return int(np.max(np.abs(got.astype(int) - want.astype(int))))
 
     def _measure_per_pass(self, passes: int, reps: int) -> float:

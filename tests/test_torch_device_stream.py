@@ -24,13 +24,22 @@ from hipe_tpu_torch.utils import images as timages
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module")
-def runners():
+def _runner_pair(name):
     image = jax_checker_image(32, 40, 3)
-    jr = JaxRunner("blur3", num_images=4, image=image, use_pallas=False)
-    tr = DeviceStreamRunner("blur3", num_images=4, image=image, device="cpu",
+    jr = JaxRunner(name, num_images=4, image=image, use_pallas=False)
+    tr = DeviceStreamRunner(name, num_images=4, image=image, device="cpu",
                             stream=np.asarray(jr.stream))
     return jr, tr
+
+
+@pytest.fixture(scope="module")
+def runners():
+    return _runner_pair("blur3")
+
+
+@pytest.fixture(scope="module")
+def chain_runners():
+    return _runner_pair("chain")
 
 
 def test_checker_image_and_layouts_match_hipe_tpu():
@@ -69,6 +78,25 @@ def test_verify_max_abs_err_is_zero(runners):
     assert tr.verify_max_abs_err() == 0
 
 
+@pytest.mark.parametrize("r", [1, 3])
+def test_chain_stream_passes_match_jax_runner(chain_runners, r):
+    jr, tr = chain_runners
+    import jax
+
+    want_stream = np.asarray(jax.lax.fori_loop(
+        0, r, lambda i, x: jr._one_pass(x), jr.stream))
+    got_sum = tr.chained(r)
+    np.testing.assert_array_equal(tr.run_passes(r).numpy(), want_stream)
+    assert got_sum == jr._sync(jr._chained(jr.stream, r))
+    np.testing.assert_array_equal(tr.stream.numpy(), np.asarray(jr.stream))
+
+
+def test_chain_verify_max_abs_err_is_zero(chain_runners):
+    jr, tr = chain_runners
+    assert tr.pipeline.filters == jr.pipeline.filters == ("gaussian3", "sharpen", "edge")
+    assert tr.verify_max_abs_err() == 0
+
+
 def test_runner_rejects_a_stream_of_the_wrong_shape():
     image = timages.checker_image(8, 8, 3)
     with pytest.raises(ValueError, match="stream"):
@@ -87,8 +115,10 @@ def test_runner_times_only_on_cuda(runners):
 def test_importing_the_port_imports_no_jax():
     code = ("import sys, hipe_tpu_torch, hipe_tpu_torch.cli, "
             "hipe_tpu_torch.runtime.device_stream, hipe_tpu_torch.ops.cuda_blur, "
+            "hipe_tpu_torch.ops.cuda_chain, "
             "hipe_tpu_torch.ops._build; "
-            "hipe_tpu_torch.DeviceStreamRunner, hipe_tpu_torch.PIPELINES; "
+            "hipe_tpu_torch.DeviceStreamRunner, hipe_tpu_torch.PIPELINES, "
+            "hipe_tpu_torch.filter_chain, hipe_tpu_torch.register_lut_filter; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('hipe_tpu.') or m == 'hipe_tpu' "
             "for m in sys.modules), 'hipe_tpu imported'")
@@ -104,6 +134,32 @@ def test_cli_without_cuda_raises():
         cli.main(["stream", "blur3", "--num-images", "2"])
     with pytest.raises(RuntimeError, match="is_available"):
         DeviceStreamRunner("blur3", num_images=2)
+
+
+@pytest.mark.parametrize("argv", [
+    ["stream", "chain", "--num-images", "2"],
+    ["stream", "gaussian5", "--num-images", "2"],
+    ["stream", "torchport_cli_dim,gaussian3,edge", "--num-images", "2",
+     "--lut", "torchport_cli_dim=brightness:0.7"],
+])
+def test_cli_chains_without_cuda_raise(argv):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the CLI would run")
+    with pytest.raises(SystemExit, match="CUDA"):
+        cli.main(argv)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["stream", "nope"], "unknown pipeline"),
+    (["stream", "gaussian3,median"], "not ported"),
+    (["stream", "median"], "not ported"),
+    (["stream", "x,edge", "--lut", "x=brightness:-1"], "bad --lut"),
+    (["stream", "edge", "--lut", "torchport_cli_bad=1,2,3"], "256 entries"),
+])
+def test_cli_bad_names_and_luts_print_one_error_line(argv, msg, capsys):
+    assert cli.main(argv) == 1
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and err[0].startswith("Error:") and msg in err[0], err
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,4 +1,4 @@
-"""The port's Pipeline against hipe_tpu's, exactly, for blur3/5/7/9."""
+"""The port's Pipeline against hipe_tpu's, exactly, for every ported pipeline."""
 
 import numpy as np
 import pytest
@@ -10,7 +10,8 @@ import jax.numpy as jnp
 from hipe_tpu.models import pipelines as jplib
 from hipe_tpu_torch.models import pipelines as tplib
 
-NAMES = ["blur3", "blur5", "blur7", "blur9"]
+NAMES = ["blur3", "blur5", "blur7", "blur9", "sharpen", "edge", "chain",
+         "invert", "solarize", "posterize"]
 
 
 def _rng(seed):
@@ -45,7 +46,36 @@ def test_registry_and_radius():
         assert tplib.get(name).filters == jplib.get(name).filters
 
 
-@pytest.mark.parametrize("name", ["median", "sharpen", "chain", "equalize", "nope"])
+@pytest.mark.parametrize("name", ["median", "denoise", "erode", "equalize", "nope"])
 def test_unported_pipelines_raise(name):
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tplib.get(name)
+
+
+@pytest.mark.parametrize("spec", ["gaussian5", ("gaussian3",), "edge", "posterize7",
+                                  ["gaussian3", "sharpen", "edge"],
+                                  ("posterize4", "gaussian9", "invert")])
+def test_get_takes_bare_stages_and_stage_sequences(spec):
+    got, want = tplib.get(spec), jplib.get(spec)
+    assert (got.name, got.filters, got.radius) == (want.name, want.filters, want.radius)
+    x = _rng(3).integers(0, 256, (3, 24, 29), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        got.apply_planar(torch.from_numpy(x)).numpy(),
+        np.asarray(want.apply_planar(jnp.asarray(x), use_pallas=True, interpret=True)))
+
+
+@pytest.mark.parametrize("spec", ["pil_emboss", ("gaussian3", "median"), ("nope",)])
+def test_get_rejects_unported_and_unknown_stages(spec):
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        tplib.get(spec)
+
+
+def test_unported_names_are_hipe_tpu_pipelines_or_stages():
+    from hipe_tpu.ops import blur as jblur
+
+    assert tplib.UNPORTED_PIPELINES <= set(jplib.PIPELINES) - set(tplib.PIPELINES)
+    # Every pipeline of hipe_tpu is ported or named as still to port.
+    for name in jplib.PIPELINES:
+        assert (name in tplib.PIPELINES or name in tplib.UNPORTED_PIPELINES
+                or name in tplib.tblur.UNPORTED_STAGES), name
+    assert tplib.tblur.UNPORTED_STAGES <= set(jblur.FILTERS)

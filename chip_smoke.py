@@ -7,22 +7,28 @@ Phases, one line each:
 
 1. Environment: torch, CUDA, nvcc, Triton and the card's name and power
    limit. Fails unless ``torch.cuda.is_available()``; never runs on the CPU.
-2. Builds kernels K1 (``hipe_tpu_torch/csrc/blur_planar.cu``) and K2
-   (``hipe_tpu_torch/csrc/chain_planar.cu``) from the checkout's sources.
+2. Builds kernels K1 (``hipe_tpu_torch/csrc/blur_planar.cu``), K2
+   (``hipe_tpu_torch/csrc/chain_planar.cu``) and K3
+   (``hipe_tpu_torch/csrc/rank_chain_planar.cu``) from the checkout's sources.
 3. Holds K1 against its plain PyTorch version on distinct random planes:
    radius 1-4, clamp and valid modes, ragged shapes, one full-stream pass,
    and every ``rows_per_block`` the autotune sweeps. Max-abs error must be 0.
 4. Holds K2 against its plain PyTorch chain the same way: band and point
    chains (a registered LUT among them), clamp and valid modes, ragged
    shapes, the full stream for ``chain``, every ``rows_per_block``.
-5. The blur3 main path: the 5000-image 256x256x3 stream through
+5. Holds K3 against its plain PyTorch chain the same way: rank-family and
+   registered-kernel chains (median, erode/dilate, median5/7/9, ``pil_*``
+   presets, a registered rank, kernel and LUT), clamp and valid modes,
+   ragged shapes, the full stream for ``denoise``, every ``rows_per_block``.
+6. The blur3 main path: the 5000-image 256x256x3 stream through
    ``DeviceStreamRunner`` (autotune, verify against the NumPy oracle, three
    throughput sessions), with the launch counts taken over that run alone.
-6. The chain main path (blur->sharpen->edge), the same way, verified
+7. The chain main path (blur->sharpen->edge), the same way, verified
    against the pipeline's plain path.
+8. The denoise main path (median -> gaussian3), the same way.
 Each main path also compares the stream after 3 chained passes with the
-plain version's and times the plain version's pass for the record; K1 must
-not run on the chain path, nor K2 on the blur3 path.
+plain version's and times the plain version's pass for the record; only the
+path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
 
 Then one JSON line of per-kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -52,6 +58,8 @@ SESSIONS = 3
 PLAIN_CHUNK = 1000
 SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1))
 LUT_NAME = "dim"  # brightness_lut(0.7), registered in phase 4
+RANK_NAME = "q"  # PIL RankFilter(5, 6), registered in phase 5
+KERNEL_NAME = "tilt"  # an asymmetric 5x5 kernel, registered in phase 5
 K2_CHAINS = (
     ("gaussian3", "sharpen", "edge"),
     ("sharpen",),
@@ -63,6 +71,20 @@ K2_CHAINS = (
     ("gaussian7",),
     (LUT_NAME, "gaussian3"),
     ("posterize1", "edge"),
+)
+K3_CHAINS = (
+    ("median", "gaussian3"),
+    ("erode", "dilate"),
+    ("dilate", "erode"),
+    ("median",),
+    ("median5", "edge"),
+    ("erode5", "dilate5"),
+    ("median7",),
+    ("posterize4", "median9"),
+    ("pil_emboss", "gaussian3"),
+    ("pil_find_edges", "pil_contour", "pil_smooth_more"),
+    (RANK_NAME, "edge"),
+    (LUT_NAME, KERNEL_NAME, "median"),
 )
 
 
@@ -99,12 +121,13 @@ def phase_env() -> str:
 
 
 def phase_build(card: str) -> None:
-    from hipe_tpu_torch.ops import _build, cuda_blur, cuda_chain
+    from hipe_tpu_torch.ops import _build, cuda_blur, cuda_chain, cuda_rank_chain
 
     t0 = time.perf_counter()
     lib = _build.build()
     cuda_blur._kernel_lib()
     cuda_chain._kernel_lib()
+    cuda_rank_chain._kernel_lib()
     secs = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
     ptxas = "; ".join(ln.split("info    : ")[-1] for ln in log.splitlines()
@@ -161,36 +184,61 @@ def phase_kernel_vs_plain(card: str) -> int:
     return worst
 
 
-def phase_k2_vs_plain(card: str) -> int:
-    from hipe_tpu_torch.ops.blur import brightness_lut, chain_radius, register_lut_filter
-    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+def chain_kernel_vs_plain(label: str, fn, chains: tuple, seed: int) -> tuple[int, int, int]:
+    """Hold a chain kernel (through ``fn``, whose launch count must grow by
+    one a launch) against the plain chain: ``chains`` on the small shapes
+    and the first of them on the full stream, clamp and valid, every
+    ``rows_per_block``. Returns (max-abs error, launches, cases)."""
+    from hipe_tpu_torch.ops.blur import chain_radius
     from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
 
-    register_lut_filter(LUT_NAME, brightness_lut(0.7))
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    before = filter_chain_planar_cuda.launches
-    chain = K2_CHAINS[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    before = fn.launches
+    chain = chains[0]
     cases = [((NUM_IMAGES * CHANNELS, SIDE, SIDE), chain, h_pad) for h_pad in (True, False)]
-    cases += [(shape, names, h_pad) for shape in SMALL_SHAPES for names in K2_CHAINS
+    cases += [(shape, names, h_pad) for shape in SMALL_SHAPES for names in chains
               for h_pad in (True, False) if h_pad or shape[1] > 2 * chain_radius(names)]
     worst, checked = 0, 0
     for shape, names, h_pad in cases:
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
         want = plain_chunked(x, names, h_pad)
         for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, want.shape[1]}):
-            got = filter_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb)
+            got = fn(x, names, h_pad=h_pad, rows_per_block=rpb)
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
             if err:
-                raise AssertionError(f"K2 != plain: shape {shape} {names} h_pad={h_pad} "
-                                     f"rows_per_block={rpb}: max-abs {err}")
+                raise AssertionError(f"{label} != plain: shape {shape} {names} "
+                                     f"h_pad={h_pad} rows_per_block={rpb}: max-abs {err}")
             worst, checked = max(worst, err), checked + 1
         del x, want, got
-    grew = filter_chain_planar_cuda.launches - before
+    grew = fn.launches - before
     if grew != checked:
-        raise AssertionError(f"launch counter grew by {grew}, expected {checked}")
-    print(f"[4 K2 vs plain] {checked} launches over {len(cases)} (shape, chain, "
+        raise AssertionError(f"{label} launch counter grew by {grew}, expected {checked}")
+    return worst, checked, len(cases)
+
+
+def phase_k2_vs_plain(card: str) -> int:
+    from hipe_tpu_torch.ops.blur import brightness_lut, register_lut_filter
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+
+    register_lut_filter(LUT_NAME, brightness_lut(0.7))
+    worst, checked, n_cases = chain_kernel_vs_plain("K2", filter_chain_planar_cuda,
+                                                    K2_CHAINS, seed=1)
+    print(f"[4 K2 vs plain] {checked} launches over {n_cases} (shape, chain, "
+          f"h_pad) cases, max_abs_err {worst} [{card}]", flush=True)
+    return worst
+
+
+def phase_k3_vs_plain(card: str) -> int:
+    from hipe_tpu_torch.ops.blur import register_kernel_filter, register_rank_filter
+    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+
+    register_rank_filter(RANK_NAME, 5, 6)
+    register_kernel_filter(KERNEL_NAME, range(-12, 13), 7, 2.5)
+    worst, checked, n_cases = chain_kernel_vs_plain("K3", rank_chain_planar_cuda,
+                                                    K3_CHAINS, seed=2)
+    print(f"[5 K3 vs plain] {checked} launches over {n_cases} (shape, chain, "
           f"h_pad) cases, max_abs_err {worst} [{card}]", flush=True)
     return worst
 
@@ -210,31 +258,34 @@ def cuda_ms(fn, reps: int = 1) -> float:
 def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
     """Drive one pipeline's 5000-image stream; the launch counts over it alone."""
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
-    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda, is_band_chain
+    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 
-    gaussian_blur_planar_cuda.launches = 0
-    filter_chain_planar_cuda.launches = 0
+    wrappers = {"K1": gaussian_blur_planar_cuda, "K2": filter_chain_planar_cuda,
+                "K3": rank_chain_planar_cuda}
+    for fn in wrappers.values():
+        fn.launches = 0
     runner = DeviceStreamRunner(pipeline, num_images=NUM_IMAGES, device="cuda")
     timings = runner.autotune()
     err = runner.verify_max_abs_err()
     sessions = [runner.measure_throughput(passes=PASSES, reps=3)
                 for _ in range(SESSIONS)]
-    counts = {"K1": gaussian_blur_planar_cuda.launches,
-              "K2": filter_chain_planar_cuda.launches}
-    kernel = "K1" if runner.pipeline.single_gaussian else "K2"
-    other = "K2" if kernel == "K1" else "K1"
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    names = runner.pipeline.filters
+    kernel = ("K1" if runner.pipeline.single_gaussian
+              else "K2" if is_band_chain(names) else "K3")
     if err != 0:
         raise AssertionError(f"{pipeline} main path max_abs_err {err}")
     timed = SESSIONS * 3 * PASSES
     if counts[kernel] < timed:
         raise AssertionError(f"{kernel} launched {counts[kernel]} times on the {pipeline} "
                              f"main path, fewer than the {timed} passes timed")
-    if counts[other]:
-        raise AssertionError(f"{other} launched {counts[other]} times on the {pipeline} "
-                             "main path, which is not its kernel's")
+    for other, n in counts.items():
+        if other != kernel and n:
+            raise AssertionError(f"{other} launched {n} times on the {pipeline} "
+                                 "main path, which is not its kernel's")
     # The stream after 3 chained passes, against the plain version's.
-    names = runner.pipeline.filters
     got = runner.run_passes(3)
     want = runner.stream
     for _ in range(3):
@@ -265,8 +316,10 @@ def main() -> int:
     phase_build(card)
     k1_err = phase_kernel_vs_plain(card)
     k2_err = phase_k2_vs_plain(card)
-    blur3 = phase_main_path(card, "5", "blur3")
-    chain = phase_main_path(card, "6", "chain")
+    k3_err = phase_k3_vs_plain(card)
+    blur3 = phase_main_path(card, "6", "blur3")
+    chain = phase_main_path(card, "7", "chain")
+    denoise = phase_main_path(card, "8", "denoise")
     print(json.dumps({"kernels": [{
         "name": "blur_planar_u8",
         "route": "cuda",
@@ -287,6 +340,15 @@ def main() -> int:
         "max_abs_err": max(k2_err, chain["chain_err"]),
         "ms": chain["ms"],
         "plain_ms": chain["plain_ms"],
+    }, {
+        "name": "rank_chain_planar_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/rank_chain_planar.cu",
+        "replaces": "hipe_tpu/ops/pallas_blur.py:273",
+        "launches": denoise["launches"],
+        "max_abs_err": max(k3_err, denoise["chain_err"]),
+        "ms": denoise["ms"],
+        "plain_ms": denoise["plain_ms"],
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,15 @@ it is). It mirrors that package's layout so each module's counterpart is
 easy to find:
 
 - :mod:`hipe_tpu_torch.ops.blur` — the plain PyTorch integer filters
-  (``FILTERS``, ``filter_chain``, ``register_lut_filter``);
+  (``FILTERS``, ``filter_chain``, ``register_lut_filter``,
+  ``register_rank_filter``, ``register_kernel_filter``);
 - :mod:`hipe_tpu_torch.ops.cuda_blur` — the hand-written CUDA stencil K1
   (``csrc/blur_planar.cu``) that replaces the Pallas blur kernels;
 - :mod:`hipe_tpu_torch.ops.cuda_chain` — the hand-written fused chain
   kernel K2 (``csrc/chain_planar.cu``) that replaces the Pallas band chain;
+- :mod:`hipe_tpu_torch.ops.cuda_rank_chain` — the hand-written fused chain
+  kernel K3 (``csrc/rank_chain_planar.cu``) that replaces the Pallas chain
+  of rank, nonlinear and registered-kernel stages;
 - :mod:`hipe_tpu_torch.models.pipelines` — ``Pipeline``/``PIPELINES``;
 - :mod:`hipe_tpu_torch.runtime.device_stream` — ``DeviceStreamRunner``,
   the device-resident 5000-image stream.
@@ -30,7 +34,8 @@ def __getattr__(name):
         from hipe_tpu_torch.models import pipelines
 
         return getattr(pipelines, name)
-    if name in ("filter_chain", "register_lut_filter"):
+    if name in ("filter_chain", "register_lut_filter", "register_rank_filter",
+                "register_kernel_filter"):
         from hipe_tpu_torch.ops import blur
 
         return getattr(blur, name)

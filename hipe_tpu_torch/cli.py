@@ -2,12 +2,16 @@
 
 This slice carries the ``stream`` subcommand, the device-resident stream on
 an NVIDIA GPU. It takes a pipeline name, a bare stage name or a comma-joined
-chain of stages, and ``--lut NAME=SPEC`` registers a LUT stage::
+chain of stages; ``--kernel``, ``--lut`` and ``--rank`` register stages
+with ``hipe_tpu``'s grammar::
 
     python -m hipe_tpu_torch.cli stream blur3 --num-images 5000 --json
     python -m hipe_tpu_torch.cli stream chain --num-images 5000 --json
+    python -m hipe_tpu_torch.cli stream denoise --num-images 5000 --json
     python -m hipe_tpu_torch.cli stream gaussian3,sharpen,edge --json
     python -m hipe_tpu_torch.cli stream dim,gaussian3 --lut dim=brightness:0.7
+    python -m hipe_tpu_torch.cli stream q,edge --rank q=5:6
+    python -m hipe_tpu_torch.cli stream soft,sharpen --kernel soft=1,2,1,2,4,2,1,2,1:16
 
 The stream's image is ``checker_image(256, 256, 3, seed=0)``; the port has
 no JPEG codec yet. Without a CUDA device the command fails: it never runs
@@ -45,12 +49,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="a pipeline, a stage name, or a comma-joined chain "
                          "of stages")
     st.add_argument(
+        "--kernel", action="append", metavar="NAME=TAPS[:SCALE[:OFFSET]]",
+        help="register a custom convolution kernel as a chainable filter "
+             "stage (taps comma-separated in PIL ImageFilter.Kernel order, "
+             "odd square 3x3-9x9; scale defaults to sum(taps); offset in "
+             "halves). Repeatable. Example: "
+             "--kernel soft=1,2,1,2,4,2,1,2,1:16 soft,sharpen")
+    st.add_argument(
         "--lut", action="append", metavar="NAME=SPEC",
         help="register a 256-entry LUT as a chainable radius-0 point stage. "
              "SPEC is brightness:F (PIL ImageEnhance.Brightness, bit-exact), "
              "gamma:G, solarize:T (PIL threshold), or 256 comma-separated "
              "uint8 values. Repeatable. Example: --lut dim=brightness:0.7 "
              "dim,gaussian3")
+    st.add_argument(
+        "--rank", action="append", metavar="NAME=SIZE:RANK",
+        help="register PIL RankFilter(SIZE, RANK) as a chainable stage "
+             "(SIZE odd 3..9, RANK in [0, SIZE^2); bit-exact incl. borders; "
+             "median5/erode5/dilate5/median7/median9 are pre-registered). "
+             "Repeatable. Example: --rank q=5:6 q,edge")
     st.add_argument("--num-images", type=int, default=5000)
     st.add_argument("--passes", type=int, default=10)
     st.add_argument("--no-autotune", action="store_true",
@@ -60,6 +77,27 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--device", default="cuda",
                     help="CUDA device to run on (default: cuda)")
     return p
+
+
+def _register_cli_kernels(specs) -> str | None:
+    """Register --kernel NAME=TAPS[:SCALE[:OFFSET]] stages; error or None."""
+    from hipe_tpu_torch.ops.blur import register_kernel_filter
+
+    for raw in specs or ():
+        head, eq, body = raw.partition("=")
+        parts = body.split(":")
+        try:
+            if not eq or not head or len(parts) > 3:
+                raise ValueError(
+                    "expected NAME=T,T,...[:SCALE[:OFFSET]] (taps in PIL "
+                    "ImageFilter.Kernel order; scale defaults to sum(taps))")
+            taps = [int(t) for t in parts[0].split(",")]
+            scale = int(parts[1]) if len(parts) > 1 and parts[1] else None
+            offset = float(parts[2]) if len(parts) > 2 and parts[2] else 0.0
+            register_kernel_filter(head, taps, scale, offset)
+        except ValueError as e:
+            return f"Error: bad --kernel {raw!r}: {e}"
+    return None
 
 
 def _register_cli_luts(specs) -> str | None:
@@ -93,6 +131,22 @@ def _register_cli_luts(specs) -> str | None:
     return None
 
 
+def _register_cli_ranks(specs) -> str | None:
+    """Register --rank NAME=SIZE:RANK stages; returns an error or None."""
+    from hipe_tpu_torch.ops.blur import register_rank_filter
+
+    for raw in specs or ():
+        head, eq, body = raw.partition("=")
+        try:
+            size, sep, rank = body.partition(":")
+            if not eq or not head or not sep:
+                raise ValueError("expected NAME=SIZE:RANK")
+            register_rank_filter(head, int(size), int(rank))
+        except ValueError as e:
+            return f"Error: bad --rank {raw!r}: {e}"
+    return None
+
+
 def _main_stream(args) -> int:
     import torch
 
@@ -100,7 +154,8 @@ def _main_stream(args) -> int:
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
     from hipe_tpu_torch.utils.images import checker_image
 
-    err = _register_cli_luts(args.lut)
+    err = (_register_cli_kernels(args.kernel) or _register_cli_luts(args.lut)
+           or _register_cli_ranks(args.rank))
     if err:
         print(err, file=sys.stderr)
         return 1

@@ -1,0 +1,359 @@
+// K3: a fused chain of exact integer stages over planar uint8, the rank,
+// nonlinear and registered-kernel family among them.
+//
+// Replaces the Pallas TPU kernel _chain_kernel (hipe_tpu/ops/pallas_blur.py:273,
+// both variants: int32 networks and int16_ranks, blur.py:rank_stage_i16) on
+// its planar entry, filter_chain_planar_pallas's non-MXU branch. The TPU
+// kernel traces hipe_tpu/ops/blur.py's stage ops over whole planes in VMEM,
+// keeping size^2 shifted window views live at once, and sizes its blocks by
+// that liveness. Here each thread computes one pixel of one stage at a time
+// from a window it reads out of shared memory, so no window view exists and
+// the block size is the rows_per_block that the stream's autotune measures.
+//
+// Stages (one program entry each, any order, up to kMaxStages): every stage
+// of K2 (gaussian 1..4, sharpen, edge, invert, solarize, posterize, LUT; the
+// same functors, chain_stages.cuh), and
+//   median                 median of the 3x3 window (Paeth's min/max network)
+//   erode, dilate          min, max of the 3x3 window
+//   rank (size, rank)      rank-th smallest of the size x size window,
+//                          size 3/5/7/9: PIL RankFilter, borders included
+//   kernel (size, spec)    clip(floor((2 sum_ij t_ij x_ij + scale (off2 + 1))
+//                          / (2 scale)), 0, 255), t the tap rows flipped as
+//                          registered (ops/blur.py register_kernel_filter)
+// Every stage clamps at the four edges of its own input; valid mode (h_pad
+// = 0) returns rows [R, H - R) of the clamp-mode result, R the chain's total
+// radius: _chain_kernel's clamp-then-trim rule.
+//
+// What bounds it on an H100: integer arithmetic, not device memory. A pass
+// reads and writes the 983 MB stream once (~0.6 ms at the data sheet's
+// 3.35 TB/s), but a size-9 rank stage does per pixel 81 shared-memory loads
+// and 8 rounds of 81 compare-and-count, ~1.4k integer instructions, some
+// 1.4 T over the 983 M pixels of the 5000-image stream: ~80 ms at the
+// card's 64 int32 lanes a cycle on each of 132 SMs. A 3x3 median is 9 loads
+// and 19 min/max, the cost of K2's edge stage.
+//
+// What the design does about it: it keeps K2's proven skeleton (one block
+// per (plane, tile of rows_per_block rows), the input rows and halo staged
+// in shared memory once, stages between two shared uint8 buffers, one read
+// and one write a pass), and
+// - selects by bit-serial counting (the rank-th smallest is >= c iff
+//   |{v < c}| <= rank; 8 rounds fix the 8 bits, most significant first)
+//   over the window held in registers: no sort, no branch, no spill, the
+//   same code for every rank and for sizes 3 to 9;
+// - keeps a kernel stage's taps in registers too, loaded once a stage from
+//   one int32 table in device memory, and divides exactly (the card has
+//   integer division; C++ truncates toward zero, so the quotient is stepped
+//   down once for a negative numerator with a remainder: a floor);
+// - is a separate kernel from K2, and instantiated for the widest window
+//   of the program (3, 5, 7 or 9): a size-9 selection needs some 90
+//   registers a thread, which would lower the occupancy of every band chain
+//   in K2 and of every 3x3 chain here.
+// The program travels by value as a kernel parameter; the host checks it
+// and sizes shared memory from it, and refuses what it does not take.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstddef>
+#include <cstdint>
+
+#include "chain_stages.cuh"
+
+namespace {
+
+constexpr int kMaxStages = 32;
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
+
+struct Program {
+  int n_stages;
+  int op[kMaxStages];
+  int arg[kMaxStages];
+  int size[kMaxStages];   // window edge of a rank or kernel stage
+  int after[kMaxStages];  // Q_k: total radius of the stages after stage k
+};
+
+__device__ __forceinline__ int med3(int a, int b, int c) {
+  return max(min(a, b), min(max(a, b), c));
+}
+
+struct Median3 {
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    int v[3][3];
+    load3x3(s, y, x, v);
+    int lo[3], me[3], hi[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int tl = min(v[r][0], v[r][1]);
+      const int th = max(v[r][0], v[r][1]);
+      lo[r] = min(tl, v[r][2]);
+      me[r] = max(tl, min(th, v[r][2]));
+      hi[r] = max(th, v[r][2]);
+    }
+    return med3(max(max(lo[0], lo[1]), lo[2]), med3(me[0], me[1], me[2]),
+                min(min(hi[0], hi[1]), hi[2]));
+  }
+};
+
+template <bool kMax>
+struct Extreme3 {
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    int v[3][3];
+    load3x3(s, y, x, v);
+    int m = v[0][0];
+#pragma unroll
+    for (int i = 1; i < 9; ++i) m = kMax ? max(m, v[i / 3][i % 3]) : min(m, v[i / 3][i % 3]);
+    return m;
+  }
+};
+
+template <int S>
+struct Rank {
+  int rank;
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    constexpr int R = S / 2;
+    int v[S * S];
+#pragma unroll
+    for (int dy = 0; dy < S; ++dy) {
+      const uint8_t* line = s.row(y + dy - R);
+#pragma unroll
+      for (int dx = 0; dx < S; ++dx) {
+        v[dy * S + dx] = line[min(max(x + dx - R, 0), s.w - 1)];
+      }
+    }
+    int acc = 0;
+#pragma unroll
+    for (int bit = 7; bit >= 0; --bit) {
+      const int cand = acc | (1 << bit);  // acc holds only the bits above
+      int below = 0;
+#pragma unroll
+      for (int i = 0; i < S * S; ++i) below += v[i] < cand;
+      if (below <= rank) acc = cand;
+    }
+    return acc;
+  }
+};
+
+// A registered kernel stage; spec = {scale, off2, taps[S*S]}, the tap rows
+// already flipped, row-major.
+template <int S>
+struct Conv {
+  int tap[S * S];
+  int den;
+  int cnum;
+
+  __device__ __forceinline__ explicit Conv(const int* __restrict__ spec) {
+    const int scale = __ldg(spec);
+    den = 2 * scale;
+    cnum = scale * (__ldg(spec + 1) + 1);
+#pragma unroll
+    for (int i = 0; i < S * S; ++i) tap[i] = __ldg(spec + 2 + i);
+  }
+
+  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+    constexpr int R = S / 2;
+    int acc = 0;
+#pragma unroll
+    for (int dy = 0; dy < S; ++dy) {
+      const uint8_t* line = s.row(y + dy - R);
+#pragma unroll
+      for (int dx = 0; dx < S; ++dx) {
+        acc += tap[dy * S + dx] * line[min(max(x + dx - R, 0), s.w - 1)];
+      }
+    }
+    const int num = 2 * acc + cnum;
+    int q = num / den;
+    if (q * den > num) --q;  // floor, for a negative numerator
+    return min(max(q, 0), 255);
+  }
+};
+
+// One block per (plane, tile of rows_per_block output rows), as K2. Output
+// row o of a plane is plane row o + out_off (out_off = 0 clamp, R valid).
+// Both shared buffers hold plane rows [g0 - R, g1 + R) at rows 0.. of the
+// buffer. kMaxSize is the widest rank or kernel window the program holds.
+template <int kMaxSize>
+__global__ void __launch_bounds__(kThreads)
+    rank_chain_planar_u8_kernel(const uint8_t* __restrict__ in,
+                                uint8_t* __restrict__ out,
+                                const uint8_t* __restrict__ luts,
+                                const int* __restrict__ taps, int h, int w,
+                                int ho, int out_off, int total_r,
+                                int rows_per_block, int tiles, Program prog) {
+  extern __shared__ uint8_t smem[];
+  const int buf_bytes = (rows_per_block + 2 * total_r) * w;
+  uint8_t* bufs[2] = {smem, smem + buf_bytes};
+  const int plane = blockIdx.x / tiles;
+  const int g0 = (blockIdx.x - plane * tiles) * rows_per_block + out_off;
+  const int g1 = min(g0 + rows_per_block, ho + out_off);
+  const int base = g0 - total_r;
+
+  // Stage the input rows [g0 - R, g1 + R) that lie in the plane.
+  {
+    const int a0 = max(base, 0);
+    const int a1 = min(g1 + total_r, h);
+    const int count = (a1 - a0) * w;
+    const uint8_t* src = in + (static_cast<size_t>(plane) * h + a0) * w;
+    uint8_t* dst = bufs[0] + (a0 - base) * w;
+    for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
+  }
+  __syncthreads();
+
+  uint8_t* plane_out = out + static_cast<size_t>(plane) * ho * w;
+  int cur = 0;
+  for (int k = 0; k < prog.n_stages; ++k) {
+    const bool last = k == prog.n_stages - 1;
+    const int q = prog.after[k];
+    const int r0 = max(g0 - q, 0);
+    const int r1 = min(g1 + q, h);
+    const Src s{bufs[cur], w, h, base};
+    uint8_t* dst = last ? plane_out : bufs[cur ^ 1];
+    const int dst_base = last ? out_off : base;
+    const int arg = prog.arg[k];
+    const int size = prog.size[k];
+    switch (prog.op[k]) {
+      case kGaussian:
+        switch (arg) {
+          case 1: run_stage(Gaussian<1>{}, s, dst, dst_base, r0, r1); break;
+          case 2: run_stage(Gaussian<2>{}, s, dst, dst_base, r0, r1); break;
+          case 3: run_stage(Gaussian<3>{}, s, dst, dst_base, r0, r1); break;
+          default: run_stage(Gaussian<4>{}, s, dst, dst_base, r0, r1); break;
+        }
+        break;
+      case kSharpen: run_stage(Sharpen{}, s, dst, dst_base, r0, r1); break;
+      case kEdge: run_stage(Edge{}, s, dst, dst_base, r0, r1); break;
+      case kInvert: run_stage(Invert{}, s, dst, dst_base, r0, r1); break;
+      case kSolarize: run_stage(Solarize{}, s, dst, dst_base, r0, r1); break;
+      case kPosterize: run_stage(Posterize{arg}, s, dst, dst_base, r0, r1); break;
+      case kLut: run_stage(Lut{luts + 256 * arg}, s, dst, dst_base, r0, r1); break;
+      case kMedian: run_stage(Median3{}, s, dst, dst_base, r0, r1); break;
+      case kErode: run_stage(Extreme3<false>{}, s, dst, dst_base, r0, r1); break;
+      case kDilate: run_stage(Extreme3<true>{}, s, dst, dst_base, r0, r1); break;
+      case kRank:
+        switch (size) {
+          case 3: run_stage(Rank<3>{arg}, s, dst, dst_base, r0, r1); break;
+          case 5:
+            if constexpr (kMaxSize >= 5) run_stage(Rank<5>{arg}, s, dst, dst_base, r0, r1);
+            break;
+          case 7:
+            if constexpr (kMaxSize >= 7) run_stage(Rank<7>{arg}, s, dst, dst_base, r0, r1);
+            break;
+          default:
+            if constexpr (kMaxSize >= 9) run_stage(Rank<9>{arg}, s, dst, dst_base, r0, r1);
+            break;
+        }
+        break;
+      default:  // kKernel
+        switch (size) {
+          case 3: run_stage(Conv<3>(taps + arg), s, dst, dst_base, r0, r1); break;
+          case 5:
+            if constexpr (kMaxSize >= 5) run_stage(Conv<5>(taps + arg), s, dst, dst_base, r0, r1);
+            break;
+          case 7:
+            if constexpr (kMaxSize >= 7) run_stage(Conv<7>(taps + arg), s, dst, dst_base, r0, r1);
+            break;
+          default:
+            if constexpr (kMaxSize >= 9) run_stage(Conv<9>(taps + arg), s, dst, dst_base, r0, r1);
+            break;
+        }
+        break;
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+}
+
+using KernelFn = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const int*, int,
+                          int, int, int, int, int, int, Program);
+
+bool window_ok(int size) { return size == 3 || size == 5 || size == 7 || size == 9; }
+
+int stage_radius(int op, int arg, int size) {
+  switch (op) {
+    case kGaussian: return arg;
+    case kSharpen: case kEdge: case kMedian: case kErode: case kDilate: return 1;
+    case kRank: case kKernel: return size / 2;
+    default: return 0;
+  }
+}
+
+bool stage_ok(int op, int arg, int size, int n_luts, int n_taps) {
+  switch (op) {
+    case kGaussian: return arg >= 1 && arg <= 4;
+    case kSharpen: case kEdge: case kInvert: case kSolarize:
+    case kMedian: case kErode: case kDilate: return true;
+    case kPosterize: return arg >= 0 && arg <= 255;
+    case kLut: return arg >= 0 && arg < n_luts;
+    case kRank: return window_ok(size) && arg >= 0 && arg < size * size;
+    case kKernel: return window_ok(size) && arg >= 0 && arg <= n_taps - 2 - size * size;
+    default: return false;
+  }
+}
+
+}  // namespace
+
+// Run the n_stages-stage program (triples op, arg, size in host memory) over
+// n planes of h x w uint8 from `in` into `out`: (n, h, w) with h_pad,
+// (n, h - 2R, w) without, R the chain's total radius. `luts` holds n_luts
+// tables of 256 bytes and `taps` n_taps int32 kernel-stage specs, both in
+// device memory (either may be null when its count is 0). Launches on
+// `stream`, does not synchronize and allocates nothing. Returns the
+// cudaError_t of the launch as an int; a program it does not take (too many
+// stages, an unknown op or argument, a tile beyond shared memory) is refused
+// with an error and leaves no error behind for the next launch.
+extern "C" int hipe_rank_chain_planar_u8(const void* in, void* out, int n, int h,
+                                         int w, const int* program, int n_stages,
+                                         const void* luts, int n_luts,
+                                         const void* taps, int n_taps, int h_pad,
+                                         int rows_per_block, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (program == nullptr || n_stages < 1 || n_stages > kMaxStages ||
+      n_luts < 0 || (n_luts > 0 && luts == nullptr) || n_taps < 0 ||
+      (n_taps > 0 && taps == nullptr)) {
+    return invalid;
+  }
+  Program prog{};
+  prog.n_stages = n_stages;
+  int max_size = 3;
+  for (int k = 0; k < n_stages; ++k) {
+    prog.op[k] = program[3 * k];
+    prog.arg[k] = program[3 * k + 1];
+    prog.size[k] = program[3 * k + 2];
+    if (!stage_ok(prog.op[k], prog.arg[k], prog.size[k], n_luts, n_taps)) return invalid;
+    if (prog.op[k] == kRank || prog.op[k] == kKernel) {
+      max_size = prog.size[k] > max_size ? prog.size[k] : max_size;
+    }
+  }
+  int total_r = 0;
+  for (int k = n_stages - 1; k >= 0; --k) {
+    prog.after[k] = total_r;
+    total_r += stage_radius(prog.op[k], prog.arg[k], prog.size[k]);
+  }
+  const int ho = h_pad ? h : h - 2 * total_r;
+  if (n < 1 || h < 1 || w < 1 || ho < 1 || rows_per_block < 1 ||
+      static_cast<long long>(h) * w > INT_MAX) {
+    return invalid;
+  }
+  const int rpb = rows_per_block < ho ? rows_per_block : ho;
+  const int tiles = (ho + rpb - 1) / rpb;
+  const long long blocks = static_cast<long long>(n) * tiles;
+  const long long smem = 2LL * (rpb + 2 * total_r) * w;
+  if (blocks > INT_MAX || smem > INT_MAX) return invalid;
+  const KernelFn kernel = max_size == 3   ? rank_chain_planar_u8_kernel<3>
+                          : max_size == 5 ? rank_chain_planar_u8_kernel<5>
+                          : max_size == 7 ? rank_chain_planar_u8_kernel<7>
+                                          : rank_chain_planar_u8_kernel<9>;
+  if (smem > static_cast<long long>(kDefaultSharedBytes)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next launch does not report it
+      return static_cast<int>(e);
+    }
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<const uint8_t*>(luts), static_cast<const int*>(taps), h, w, ho,
+      h_pad ? 0 : total_r, total_r, rpb, tiles, prog);
+  return static_cast<int>(cudaGetLastError());
+}

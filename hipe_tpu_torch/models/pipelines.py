@@ -7,8 +7,9 @@ on channels-last batches (plain PyTorch, any device) and
 hot path, which runs the hand-written CUDA kernels on the card.
 
 Single gaussians (``blur3/5/7/9``) run K1, every other chain of band and
-point stages runs the fused chain kernel K2, as ``hipe_tpu`` routes them to
-its blur and chain kernels. The rank family and the global-statistics
+point stages runs the fused chain kernel K2, and every chain with a rank or
+registered-kernel stage runs K3, as ``hipe_tpu`` routes them to its blur
+kernel, ``_chain_mxu_kernel`` and ``_chain_kernel``. The global-statistics
 pipelines of ``hipe_tpu`` are listed in ROADMAP.md as still to be ported.
 """
 
@@ -40,7 +41,7 @@ class Pipeline:
 
     @property
     def single_gaussian(self) -> bool:
-        """Whether the chain is one gaussian stage (K1's; K2 runs the rest)."""
+        """Whether the chain is one gaussian stage (K1's; K2 or K3 runs the rest)."""
         return len(self.filters) == 1 and self.filters[0] in tblur.GAUSSIANS
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +51,7 @@ class Pipeline:
     def apply_planar(self, planes: torch.Tensor, *, h_pad: bool = True,
                      rows_per_block: int | None = None,
                      out: torch.Tensor | None = None) -> torch.Tensor:
-        """Planar (N, H, W) path: K1 or K2 on the card, plain on the CPU.
+        """Planar (N, H, W) path: K1, K2 or K3 on the card, plain on the CPU.
 
         ``h_pad=False`` treats H as halo-padded by :attr:`radius` rows per
         side and returns the valid interior (row-split shard mode).
@@ -72,26 +73,38 @@ PIPELINES = {
     "sharpen": Pipeline("sharpen", ("sharpen",)),
     "edge": Pipeline("edge", ("edge",)),
     "chain": Pipeline("chain", ("gaussian3", "sharpen", "edge")),
+    "median": Pipeline("median", ("median",)),
+    "denoise": Pipeline("denoise", ("median", "gaussian3")),
+    # Morphology: 3x3 min/max rank filters (PIL MinFilter/MaxFilter) and the
+    # opening/closing compositions.
+    "erode": Pipeline("erode", ("erode",)),
+    "dilate": Pipeline("dilate", ("dilate",)),
+    "open": Pipeline("open", ("erode", "dilate")),
+    "close": Pipeline("close", ("dilate", "erode")),
+    # 5x5/7x7/9x9 rank filters (PIL MedianFilter(n)).
+    "median5": Pipeline("median5", ("median5",)),
+    "median7": Pipeline("median7", ("median7",)),
+    "median9": Pipeline("median9", ("median9",)),
     "invert": Pipeline("invert", ("invert",)),
     "solarize": Pipeline("solarize", ("solarize",)),
     "posterize": Pipeline("posterize", ("posterize4",)),
 }
 
-# Pipelines of hipe_tpu that this package does not carry yet, beside its
-# unported stages (``tblur.UNPORTED_STAGES``); ROADMAP.md lists their order.
+# The global-statistics pipelines of hipe_tpu, which this package does not
+# carry yet; ROADMAP.md lists their order.
 UNPORTED_PIPELINES = frozenset({
-    "denoise", "open", "close", "equalize", "autocontrast", "contrast",
-    "color", "sharpness", "mode", "mode5",
+    "equalize", "autocontrast", "contrast", "color", "sharpness", "mode", "mode5",
 })
 
 
 def get(name_or_filters) -> Pipeline:
     """A pipeline by name, a bare stage name, or a sequence of stage names.
 
-    Follows ``hipe_tpu.models.pipelines.get``: a bare stage is a one-stage
-    pipeline and a sequence is named by joining its stages with ``+``. A
-    name that ``hipe_tpu`` has but this package does not carry yet, and an
-    unknown name, raise ``KeyError``.
+    Follows ``hipe_tpu.models.pipelines.get``: a bare stage (registered
+    ones included) is a one-stage pipeline and a sequence is named by
+    joining its stages with ``+``. A pipeline that ``hipe_tpu`` has but
+    this package does not carry yet, and an unknown name, raise
+    ``KeyError``.
     """
     if isinstance(name_or_filters, Pipeline):
         return name_or_filters
@@ -101,7 +114,7 @@ def get(name_or_filters) -> Pipeline:
             return PIPELINES[name]
         if name in tblur.FILTERS:
             return Pipeline(name, (name,))
-        if name in UNPORTED_PIPELINES or name in tblur.UNPORTED_STAGES:
+        if name in UNPORTED_PIPELINES:
             raise KeyError(
                 f"pipeline {name!r} is not ported to hipe_tpu_torch yet "
                 f"(ported: {sorted(PIPELINES)} and the stages "

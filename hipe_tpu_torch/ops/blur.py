@@ -1,11 +1,13 @@
 """Integer-exact image filters in plain PyTorch (counterpart of ``hipe_tpu.ops.blur``).
 
-These are the plain tensor versions of the band and point stages: uint8 in,
-int32 arithmetic, uint8 out, clamp-to-edge borders. They are what the CUDA
-kernels (:mod:`hipe_tpu_torch.ops.cuda_blur`, :mod:`hipe_tpu_torch.ops.cuda_chain`)
-are held against, and what their wrappers run for a tensor that lies on the
-CPU. They work on any layout where H and W are identifiable axes (NHWC, HWC,
-planar ``(N, H, W)``).
+These are the plain tensor versions of every stage: the band, point, rank
+(median, erode, dilate, registered ``RankFilter``) and registered-kernel
+(``ImageFilter.Kernel``, the ``pil_*`` presets) stages. uint8 in, exact
+integer arithmetic, uint8 out, clamp-to-edge borders. They are what the CUDA
+kernels (:mod:`hipe_tpu_torch.ops.cuda_blur`, :mod:`hipe_tpu_torch.ops.cuda_chain`,
+:mod:`hipe_tpu_torch.ops.cuda_rank_chain`) are held against, and what their
+wrappers run for a tensor that lies on the CPU. They work on any layout
+where H and W are identifiable axes (NHWC, HWC, planar ``(N, H, W)``).
 """
 
 from __future__ import annotations
@@ -94,22 +96,25 @@ def gaussian_blur_planar(x: torch.Tensor, radius: int = 1, *,
     return gaussian_blur(x, radius, h_axis=-2, w_axis=-1, h_pad=h_pad)
 
 
-def _stencil3x3(x: torch.Tensor, h_axis: int, w_axis: int, h_pad: bool):
-    """Return ``view(dy, dx)``: the 9 int32 shifted views of x for a 3x3 stencil.
+def _stencil_r(x: torch.Tensor, h_axis: int, w_axis: int, h_pad: bool, r: int,
+               dtype: torch.dtype = torch.int32):
+    """Return ``view(dy, dx)``: the shifted views of x for a (2r+1)^2 stencil.
 
-    W clamps at its edges; H clamps with ``h_pad`` and is valid-only (one
-    row fewer at each end) without it.
+    The views are of ``dtype`` (int32 for stencils that sum; the rank
+    family keeps uint8, since min, max and comparisons are exact on it).
+    W clamps at its edges; H clamps with ``h_pad`` and is valid-only (r rows
+    fewer at each end) without it.
     """
     h_axis %= x.dim()
     w_axis %= x.dim()
-    xp = _edge_pad_axis(x.to(torch.int32), w_axis, 1)
+    xp = _edge_pad_axis(x.to(dtype), w_axis, r)
     if h_pad:
-        xp = _edge_pad_axis(xp, h_axis, 1)
-    hn = xp.shape[h_axis] - 2
-    wn = xp.shape[w_axis] - 2
+        xp = _edge_pad_axis(xp, h_axis, r)
+    hn = xp.shape[h_axis] - 2 * r
+    wn = xp.shape[w_axis] - 2 * r
     if hn < 1:
         raise ValueError(
-            f"valid mode needs more than 2 entries along axis {h_axis}, "
+            f"valid mode needs more than {2 * r} entries along axis {h_axis}, "
             f"got {xp.shape[h_axis]}")
 
     def view(dy: int, dx: int) -> torch.Tensor:
@@ -123,7 +128,7 @@ def sharpen3x3(x: torch.Tensor, *, h_axis: int = -3, w_axis: int = -2,
     """Unsharp 3x3 [[0,-1,0],[-1,5,-1],[0,-1,0]], saturating uint8 store."""
     if x.dtype != torch.uint8:
         raise TypeError(f"expected uint8, got {x.dtype}")
-    v = _stencil3x3(x, h_axis, w_axis, h_pad)
+    v = _stencil_r(x, h_axis, w_axis, h_pad, 1)
     out = 5 * v(1, 1) - v(0, 1) - v(2, 1) - v(1, 0) - v(1, 2)
     return out.clamp(0, 255).to(torch.uint8)
 
@@ -133,10 +138,62 @@ def sobel_edge(x: torch.Tensor, *, h_axis: int = -3, w_axis: int = -2,
     """Sobel |gx|+|gy| edge magnitude, per channel, saturating uint8 store."""
     if x.dtype != torch.uint8:
         raise TypeError(f"expected uint8, got {x.dtype}")
-    v = _stencil3x3(x, h_axis, w_axis, h_pad)
+    v = _stencil_r(x, h_axis, w_axis, h_pad, 1)
     gx = (v(0, 2) + 2 * v(1, 2) + v(2, 2)) - (v(0, 0) + 2 * v(1, 0) + v(2, 0))
     gy = (v(2, 0) + 2 * v(2, 1) + v(2, 2)) - (v(0, 0) + 2 * v(0, 1) + v(0, 2))
     return (gx.abs() + gy.abs()).clamp(0, 255).to(torch.uint8)
+
+
+def _median_of_9(vals):
+    """Elementwise median of 9 tensors: Paeth's 19-op min/max network.
+
+    Sort each triple to (lo, me, hi); the median of all nine is then
+    med3(max of the los, med3 of the mes, min of the his).
+    """
+    mn, mx = torch.minimum, torch.maximum
+
+    def sort3(a, b, c):
+        tl, th = mn(a, b), mx(a, b)
+        return mn(tl, c), mx(tl, mn(th, c)), mx(th, c)
+
+    def med3(a, b, c):
+        return mx(mn(a, b), mn(mx(a, b), c))
+
+    t = [sort3(*vals[i:i + 3]) for i in (0, 3, 6)]
+    lo = mx(mx(t[0][0], t[1][0]), t[2][0])
+    me = med3(t[0][1], t[1][1], t[2][1])
+    hi = mn(mn(t[0][2], t[1][2]), t[2][2])
+    return med3(lo, me, hi)
+
+
+def median3x3(x: torch.Tensor, *, h_axis: int = -3, w_axis: int = -2,
+              h_pad: bool = True) -> torch.Tensor:
+    """3x3 median (salt-and-pepper denoise), clamp-to-edge, per channel."""
+    if x.dtype != torch.uint8:
+        raise TypeError(f"expected uint8, got {x.dtype}")
+    v = _stencil_r(x, h_axis, w_axis, h_pad, 1, dtype=torch.uint8)
+    return _median_of_9([v(dy, dx) for dy in range(3) for dx in range(3)])
+
+
+def _rank3x3(x, h_axis, w_axis, h_pad, reduce_fn):
+    """Separable 3x3 rank extreme: reduce W triples, then H triples."""
+    if x.dtype != torch.uint8:
+        raise TypeError(f"expected uint8, got {x.dtype}")
+    v = _stencil_r(x, h_axis, w_axis, h_pad, 1, dtype=torch.uint8)
+    rows = [reduce_fn(reduce_fn(v(dy, 0), v(dy, 1)), v(dy, 2)) for dy in range(3)]
+    return reduce_fn(reduce_fn(rows[0], rows[1]), rows[2])
+
+
+def erode3x3(x: torch.Tensor, *, h_axis: int = -3, w_axis: int = -2,
+             h_pad: bool = True) -> torch.Tensor:
+    """3x3 minimum (morphological erosion), PIL ``MinFilter(3)``."""
+    return _rank3x3(x, h_axis, w_axis, h_pad, torch.minimum)
+
+
+def dilate3x3(x: torch.Tensor, *, h_axis: int = -3, w_axis: int = -2,
+              h_pad: bool = True) -> torch.Tensor:
+    """3x3 maximum (morphological dilation), PIL ``MaxFilter(3)``."""
+    return _rank3x3(x, h_axis, w_axis, h_pad, torch.maximum)
 
 
 # ---- Radius-0 point stages (the PIL ImageOps pointwise family) ----
@@ -184,6 +241,9 @@ FILTERS = {
     "gaussian9": functools.partial(gaussian_blur, radius=4),
     "sharpen": sharpen3x3,
     "edge": sobel_edge,
+    "median": median3x3,
+    "erode": erode3x3,
+    "dilate": dilate3x3,
     **{nm: _make_point_filter(fn) for nm, fn in POINT_STAGES.items()},
 }
 
@@ -195,19 +255,11 @@ FILTER_RADIUS = {
     "gaussian9": 4,
     "sharpen": 1,
     "edge": 1,
+    "median": 1,
+    "erode": 1,
+    "dilate": 1,
     **{nm: 0 for nm in POINT_STAGES},
 }
-
-# Builtin stages of hipe_tpu that this package does not carry yet (the rank
-# family, registered-kernel presets); ROADMAP.md lists their order. Their
-# names stay reserved: they are not free for register_lut_filter.
-UNPORTED_STAGES = frozenset({
-    "median", "erode", "dilate", "median5", "erode5", "dilate5", "median7",
-    "median9", "pil_blur", "pil_contour", "pil_detail", "pil_edge_enhance",
-    "pil_edge_enhance_more", "pil_emboss", "pil_find_edges", "pil_sharpen",
-    "pil_smooth", "pil_smooth_more",
-})
-
 
 def filter_chain(x: torch.Tensor, names: Sequence[str], *, h_axis: int = -3,
                  w_axis: int = -2, h_pad: bool = True) -> torch.Tensor:
@@ -268,7 +320,7 @@ def register_lut_filter(name: str, lut) -> None:
             return
         raise ValueError(f"LUT {name!r} already registered with "
                          "different entries")
-    if name in FILTERS or name in UNPORTED_STAGES:
+    if name in FILTERS:
         raise ValueError(f"{name!r} is already a builtin filter name")
     LUT_STAGES[name] = lut
     fn = _make_lut_point_fn(lut)
@@ -305,3 +357,212 @@ def gamma_lut(gamma: float) -> np.ndarray:
         raise ValueError(f"gamma must be > 0, got {gamma}")
     v = np.arange(256, dtype=np.float64) / 255.0
     return np.clip(np.round(255.0 * v ** gamma), 0, 255).astype(np.uint8)
+
+
+# ---- User-defined convolution kernels (the PIL ImageFilter.Kernel family) --
+#
+# A registered kernel stage is an integer-tap correlation with an integer
+# divisor and half-integer offset, rounded half up with exact integers:
+#
+#   out = clamp( (2*acc + scale*(2*offset + 1)) // (2*scale) )
+#
+# Taps are given in PIL orientation (row 0 first); PIL applies kernel rows
+# bottom-up, so registration flips the rows (not the columns) into a
+# top-down correlation. hipe_tpu divides by an fp32 reciprocal with a
+# remainder correction because the TPU has no integer divide; here the
+# floor division is exact integer division, with the same results.
+
+KERNEL_STAGES: dict = {}
+
+# hipe_tpu's bound on |2*acc + scale*(2*off+1)|; kept so that the same
+# specs register in both packages (it also keeps every numerator in int32).
+_KERNEL_NUM_LIMIT = 1 << 22
+
+
+def _kernel_acc(view, flipped, size):
+    acc = None
+    for dy in range(size):
+        for dx in range(size):
+            t = flipped[dy][dx]
+            if t == 0:
+                continue
+            term = view(dy, dx) if t == 1 else t * view(dy, dx)
+            acc = term if acc is None else acc + term
+    return acc if acc is not None else 0 * view(size // 2, size // 2)
+
+
+def _make_kernel_stage(spec):
+    size, flipped = spec["size"], spec["flipped"]
+    den, cnum = 2 * spec["scale"], spec["scale"] * (spec["off2"] + 1)
+
+    def op(x: torch.Tensor, *, h_axis: int = -3, w_axis: int = -2,
+           h_pad: bool = True) -> torch.Tensor:
+        if x.dtype != torch.uint8:
+            raise TypeError(f"expected uint8, got {x.dtype}")
+        v = _stencil_r(x, h_axis, w_axis, h_pad, size // 2)
+        num = 2 * _kernel_acc(v, flipped, size) + cnum
+        q = torch.div(num, den, rounding_mode="floor")
+        return q.clamp(0, 255).to(torch.uint8)
+
+    return op
+
+
+def register_kernel_filter(name: str, taps, scale: int | None = None,
+                           offset: float = 0.0) -> None:
+    """Register a user convolution kernel as a chainable filter stage.
+
+    ``taps``: (2r+1)^2 integers in PIL ``ImageFilter.Kernel`` order (row 0
+    first). ``scale`` defaults to ``sum(taps)`` and must be a positive
+    integer; ``offset`` must be a multiple of 0.5. Re-registering the same
+    name with an identical spec is a no-op; a conflicting spec, or the name
+    of a builtin stage, raises.
+    """
+    taps = tuple(int(t) for t in taps)
+    size = int(round(len(taps) ** 0.5))
+    if size * size != len(taps) or size % 2 == 0 or not (3 <= size <= 9):
+        raise ValueError(
+            f"kernel {name!r}: taps must be a full odd square "
+            f"(3x3/5x5/7x7/9x9), got {len(taps)} taps")
+    if scale is None:
+        scale = sum(taps)
+    if int(scale) != scale or scale <= 0:
+        raise ValueError(
+            f"kernel {name!r}: scale must be a positive integer "
+            f"(PIL default sum(taps) = {sum(taps)}), got {scale!r}")
+    scale = int(scale)
+    off2 = 2.0 * float(offset)
+    if off2 != int(off2):
+        raise ValueError(
+            f"kernel {name!r}: offset must be a multiple of 0.5, "
+            f"got {offset!r}")
+    off2 = int(off2)
+    num_bound = 2 * 255 * sum(abs(t) for t in taps) + scale * (abs(off2) + 1)
+    if num_bound > _KERNEL_NUM_LIMIT:
+        raise ValueError(
+            f"kernel {name!r}: |taps|/scale/offset too large for exact "
+            f"int32 arithmetic (bound {num_bound} > {_KERNEL_NUM_LIMIT})")
+    rows = [list(taps[i * size:(i + 1) * size]) for i in range(size)]
+    spec = {
+        "taps": taps, "scale": scale, "off2": off2, "size": size,
+        "flipped": tuple(tuple(r_) for r_ in rows[::-1]),
+        "radius": size // 2,
+    }
+    prev = KERNEL_STAGES.get(name)
+    if prev is not None:
+        if prev == spec:
+            return
+        raise ValueError(f"kernel {name!r} already registered with a different spec")
+    if name in FILTERS:
+        raise ValueError(f"{name!r} is already a builtin filter name")
+    KERNEL_STAGES[name] = spec
+    FILTERS[name] = _make_kernel_stage(spec)
+    FILTER_RADIUS[name] = spec["radius"]
+
+
+# The PIL builtin convolution presets (Pillow's ImageFilter tap tables, as
+# hipe_tpu registers them), as ``pil_*`` stages.
+PIL_PRESETS = {
+    "pil_blur": ((1, 1, 1, 1, 1,
+                  1, 0, 0, 0, 1,
+                  1, 0, 0, 0, 1,
+                  1, 0, 0, 0, 1,
+                  1, 1, 1, 1, 1), 16, 0),
+    "pil_contour": ((-1, -1, -1, -1, 8, -1, -1, -1, -1), 1, 255),
+    "pil_detail": ((0, -1, 0, -1, 10, -1, 0, -1, 0), 6, 0),
+    "pil_edge_enhance": ((-1, -1, -1, -1, 10, -1, -1, -1, -1), 2, 0),
+    "pil_edge_enhance_more": ((-1, -1, -1, -1, 9, -1, -1, -1, -1), 1, 0),
+    "pil_emboss": ((-1, 0, 0, 0, 1, 0, 0, 0, 0), 1, 128),
+    "pil_find_edges": ((-1, -1, -1, -1, 8, -1, -1, -1, -1), 1, 0),
+    "pil_sharpen": ((-2, -2, -2, -2, 32, -2, -2, -2, -2), 16, 0),
+    "pil_smooth": ((1, 1, 1, 1, 5, 1, 1, 1, 1), 13, 0),
+    "pil_smooth_more": ((1, 1, 1, 1, 1,
+                         1, 5, 5, 5, 1,
+                         1, 5, 44, 5, 1,
+                         1, 5, 5, 5, 1,
+                         1, 1, 1, 1, 1), 100, 0),
+}
+
+for _nm, (_taps, _scale, _off) in PIL_PRESETS.items():
+    register_kernel_filter(_nm, _taps, _scale, _off)
+
+
+# ---- Generalized rank filters (PIL RankFilter / MedianFilter family) -----
+#
+# The rank-th smallest value of the clamped (2r+1)^2 window: PIL's
+# ``RankFilter(size, rank)``, borders included (PIL replicates the border
+# before ranking, the engine's clamp-to-edge rule).
+
+RANK_STAGES: dict = {}
+
+
+def _rank_select(vals, rank: int) -> torch.Tensor:
+    """The rank-th smallest of the uint8 tensors ``vals``, elementwise.
+
+    Bit-serial counting selection, most significant bit first: the rank-th
+    smallest is >= c iff |{v < c}| <= rank, so 8 rounds of comparison
+    counts fix one bit each. It reads the window through views, so no
+    (n, ...) stack is ever made, and stays in uint8: values, candidates
+    and counts (n <= 81) all fit. hipe_tpu runs an odd-even network up to
+    25 values and this counting above; every exact selection agrees.
+    """
+    acc = torch.zeros_like(vals[0])
+    for bit in range(7, -1, -1):
+        cand = acc + (1 << bit)  # acc holds only the bits above `bit`
+        cnt = torch.zeros_like(acc)
+        for v in vals:
+            cnt += v < cand
+        acc = torch.where(cnt <= rank, cand, acc)
+    return acc
+
+
+def _make_rank_stage(size: int, rank: int):
+    r = size // 2
+
+    def op(x: torch.Tensor, *, h_axis: int = -3, w_axis: int = -2,
+           h_pad: bool = True) -> torch.Tensor:
+        if x.dtype != torch.uint8:
+            raise TypeError(f"expected uint8, got {x.dtype}")
+        v = _stencil_r(x, h_axis, w_axis, h_pad, r, dtype=torch.uint8)
+        return _rank_select([v(dy, dx) for dy in range(size) for dx in range(size)],
+                            rank)
+
+    return op
+
+
+def register_rank_filter(name: str, size: int, rank: int) -> None:
+    """Register ``PIL.ImageFilter.RankFilter(size, rank)`` as a stage.
+
+    size: odd window edge (3/5/7/9); rank: order statistic in
+    [0, size*size). Re-registering the same name with an identical spec
+    is a no-op; a conflicting spec, or the name of a builtin stage, raises.
+    """
+    if size not in (3, 5, 7, 9):
+        raise ValueError(
+            f"rank filter {name!r}: size must be odd 3..9, got {size} "
+            "(PIL RankFilter semantics; larger windows would exceed the "
+            "halo machinery's radius support)")
+    if not (0 <= rank < size * size):
+        raise ValueError(
+            f"rank filter {name!r}: rank must be in [0, {size * size - 1}],"
+            f" got {rank}")
+    spec = (int(size), int(rank))
+    prev = RANK_STAGES.get(name)
+    if prev is not None:
+        if prev == spec:
+            return
+        raise ValueError(
+            f"rank filter {name!r} already registered with a different spec")
+    if name in FILTERS:
+        raise ValueError(f"{name!r} is already a builtin filter name")
+    RANK_STAGES[name] = spec
+    FILTERS[name] = _make_rank_stage(*spec)
+    FILTER_RADIUS[name] = size // 2
+
+
+# The 5x5/7x7/9x9 builtins of the family (the 3x3 ones are median, erode
+# and dilate above): PIL MedianFilter(5/7/9), MinFilter(5), MaxFilter(5).
+register_rank_filter("median5", 5, 12)
+register_rank_filter("erode5", 5, 0)
+register_rank_filter("dilate5", 5, 24)
+register_rank_filter("median7", 7, 24)
+register_rank_filter("median9", 9, 40)

@@ -1,15 +1,18 @@
-"""Fused band/point chains on the card: wrapper of kernel K2 (``csrc/chain_planar.cu``).
+"""Fused chains on the card: wrapper of kernel K2 (``csrc/chain_planar.cu``).
 
-The counterpart of ``hipe_tpu.ops.pallas_blur.filter_chain_planar_pallas``
-and its fused kernel ``_chain_mxu_kernel`` (both band forms): K2 runs a
-chain of gaussian3/5/7/9, sharpen, edge and point stages (invert, solarize,
-posterize1-8, registered LUTs) over planar ``(N, H, W)`` uint8 with one read
-and one write, every stage an exact integer op.
+The counterpart of ``hipe_tpu.ops.pallas_blur.filter_chain_planar_pallas``.
+K2 stands for its fused kernel ``_chain_mxu_kernel`` (both band forms): it
+runs a chain of gaussian3/5/7/9, sharpen, edge and point stages (invert,
+solarize, posterize1-8, registered LUTs) over planar ``(N, H, W)`` uint8
+with one read and one write, every stage an exact integer op. Every other
+chain (one with a rank-family or registered-kernel stage) goes to K3
+(:mod:`hipe_tpu_torch.ops.cuda_rank_chain`), as ``hipe_tpu`` sends it to
+``_chain_kernel``.
 
-For a CUDA tensor :func:`filter_chain_planar_cuda` launches K2 or raises;
-for a CPU tensor it runs the plain PyTorch chain
+For a CUDA tensor :func:`filter_chain_planar_cuda` launches K2 or K3 or
+raises; for a CPU tensor it runs the plain PyTorch chain
 (:func:`hipe_tpu_torch.ops.blur.filter_chain`), which is also what the
-kernel is held against on the card.
+kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -83,36 +86,33 @@ def _device_program(names: tuple, device: torch.device, lut_bytes: tuple):
 
 
 def check_stages(names: Sequence[str]) -> tuple:
-    """The chain as a tuple, or KeyError naming what is not a ported stage."""
+    """The chain as a tuple, or KeyError naming what is not a stage."""
     names = tuple(names)
     unknown = [n for n in names if n not in tblur.FILTERS]
     if unknown:
-        unported = [n for n in unknown if n in tblur.UNPORTED_STAGES]
-        what = (f"stage(s) {unported!r} of hipe_tpu are not ported to "
-                "hipe_tpu_torch yet" if unported else
-                f"unknown filter stage(s) {unknown!r}")
-        raise KeyError(f"{what} (ported: {sorted(tblur.FILTERS)}); "
-                       "ROADMAP.md lists the order of the rest")
+        raise KeyError(f"unknown filter stage(s) {unknown!r} (ported: "
+                       f"{sorted(tblur.FILTERS)}); ROADMAP.md lists what is "
+                       "still to be ported")
     if not names:
         raise ValueError("a chain needs at least one stage")
     return names
 
 
-def filter_chain_planar_cuda(
-    x: torch.Tensor,
-    names: Sequence[str],
-    *,
-    h_pad: bool = True,
-    rows_per_block: int | None = None,
-    out: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Fused chain of band/point stages over planar ``(N, H, W)`` uint8.
+def is_band_chain(names: Sequence[str]) -> bool:
+    """Whether K2 takes the chain: every stage a gaussian, sharpen, edge or
+    point stage. This is ``hipe_tpu``'s ``mxu_ok`` rule without its
+    ``H % 8`` clause (K2 takes any H); every other chain runs K3."""
+    return all(nm in tblur.GAUSSIANS or nm in ("sharpen", "edge")
+               or nm in tblur.POINT_STAGES for nm in names)
 
-    Every stage clamps at the edges of its own input; with ``h_pad`` the
-    output is ``(N, H, W)``, without it ``(N, H - 2R, W)`` with R the
-    chain's total radius (the valid interior). ``out``, if given, receives
-    the result and must not share memory with ``x``. ``rows_per_block`` is
-    K2's launch knob (output rows per thread block).
+
+def check_planar_call(x: torch.Tensor, names: Sequence[str], h_pad: bool,
+                      rows_per_block: int | None,
+                      out: torch.Tensor | None) -> tuple[tuple, int, int]:
+    """Check a chain call on planar ``(N, H, W)`` uint8 for K2 or K3.
+
+    Returns the chain as a tuple, the output rows and the rows per block;
+    raises on anything the kernels do not take.
     """
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise TypeError(
@@ -134,13 +134,40 @@ def filter_chain_planar_cuda(
                 f"{x.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
         if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
             raise ValueError("out shares memory with x; the chain is out-of-place")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    return names, ho, rpb
+
+
+def filter_chain_planar_cuda(
+    x: torch.Tensor,
+    names: Sequence[str],
+    *,
+    h_pad: bool = True,
+    rows_per_block: int | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused chain of any stages over planar ``(N, H, W)`` uint8.
+
+    Every stage clamps at the edges of its own input; with ``h_pad`` the
+    output is ``(N, H, W)``, without it ``(N, H - 2R, W)`` with R the
+    chain's total radius (the valid interior). ``out``, if given, receives
+    the result and must not share memory with ``x``. ``rows_per_block`` is
+    the kernel's launch knob (output rows per thread block). A band chain
+    (:func:`is_band_chain`) runs K2, any other chain K3.
+    """
+    if not is_band_chain(names):  # unknown names too: K3's checks raise
+        from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+
+        return rank_chain_planar_cuda(x, names, h_pad=h_pad,
+                                      rows_per_block=rows_per_block, out=out)
+    names, ho, rpb = check_planar_call(x, names, h_pad, rows_per_block, out)
     if x.device.type == "cpu":
         y = tblur.filter_chain(x, names, h_axis=-2, w_axis=-1, h_pad=h_pad)
         return y if out is None else out.copy_(y)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    n, h, w = x.shape
     lut_bytes = tuple(tblur.LUT_STAGES[nm].tobytes() for nm in names
                       if nm in tblur.LUT_STAGES)
     prog, luts = _device_program(names, x.device, lut_bytes)

@@ -3,11 +3,12 @@
 The counterpart of ``hipe_tpu.runtime.device_stream``. The stream of N
 images stays in device memory as planar ``(N*C, H, W)`` uint8; each pass
 filters the whole stream with one launch of the pipeline's kernel (K1 for a
-single gaussian, the fused chain kernel K2 for every other chain), and only
+single gaussian, the fused chain kernel K2 for every other band and point
+chain, K3 for a chain with a rank or registered-kernel stage), and only
 checksums and the first image return to the host.
 
 Chained passes feed every output into the next pass, alternating between
-two scratch buffers (both kernels are out-of-place: a tile's halo rows
+two scratch buffers (the kernels are out-of-place: a tile's halo rows
 belong to its neighbour, so in-place writes would race). The stream itself is never
 overwritten, so every measurement starts from the same input.
 
@@ -25,7 +26,7 @@ from hipe_tpu_torch.models import pipelines as plib
 from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
 from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
 
-# The launch knob of K1 and K2 swept by autotune: output rows per block,
+# The launch knob of K1, K2 and K3 swept by autotune: output rows per block,
 # plus one block per whole plane (appended from the plane height).
 ROWS_PER_BLOCK_CANDIDATES = (8, 16, 32, 64, 128)
 

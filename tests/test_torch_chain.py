@@ -105,13 +105,23 @@ def test_chain_wrapper_matches_int8_band_chain(names, h_pad):
 
 
 def test_radii_match_hipe_tpu():
-    # Other test files may register port-only LUTs in the same process.
-    for name in [*(n for n in tblur.FILTERS if n not in tblur.LUT_STAGES), LUT_NAME]:
-        assert tblur.FILTER_RADIUS[name] == jblur.FILTER_RADIUS[name], name
+    # Other test files may register port-only stages in the same process;
+    # every test registration carries a torchport_ name.
+    for name in tblur.FILTERS:
+        if name in jblur.FILTERS:
+            assert tblur.FILTER_RADIUS[name] == jblur.FILTER_RADIUS[name], name
+        else:
+            assert name.startswith("torchport_"), name
+    assert tblur.FILTER_RADIUS[LUT_NAME] == jblur.FILTER_RADIUS[LUT_NAME] == 0
     for names in CHAINS:
         assert tblur.chain_radius(names) == jblur.chain_radius(names)
-    # The names the port keeps reserved are hipe_tpu builtins it lacks.
-    assert tblur.UNPORTED_STAGES <= set(jblur.FILTERS) - set(tblur.FILTERS)
+    # Every stage of hipe_tpu is ported (the rank family and the registered
+    # kernels included), so no name needs reserving.
+    builtin = (set(jblur.FILTERS) - set(jblur.LUT_STAGES)
+               - (set(jblur.KERNEL_STAGES) - set(jblur.PIL_PRESETS))
+               - (set(jblur.RANK_STAGES)
+                  - {"median5", "erode5", "dilate5", "median7", "median9"}))
+    assert builtin <= set(tblur.FILTERS)
 
 
 @pytest.mark.parametrize("factor", [0, 0.7, 1.234, 2.5])
@@ -169,8 +179,8 @@ def test_wrapper_on_cpu_launches_nothing_and_rejects_bad_stages():
     assert filter_chain_planar_cuda.launches == 0
     with pytest.raises(KeyError, match="unknown"):
         filter_chain_planar_cuda(x, ("gaussian3", "nope"))
-    with pytest.raises(KeyError, match="not ported"):
-        filter_chain_planar_cuda(x, ("median", "edge"))
+    with pytest.raises(KeyError, match="unknown filter stage"):
+        filter_chain_planar_cuda(x, ("mode", "edge"))
     with pytest.raises(ValueError, match="valid mode"):
         filter_chain_planar_cuda(x, ("gaussian9", "gaussian5"), h_pad=False)
     with pytest.raises(ValueError, match="shares memory"):

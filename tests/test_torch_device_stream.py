@@ -115,10 +115,12 @@ def test_runner_times_only_on_cuda(runners):
 def test_importing_the_port_imports_no_jax():
     code = ("import sys, hipe_tpu_torch, hipe_tpu_torch.cli, "
             "hipe_tpu_torch.runtime.device_stream, hipe_tpu_torch.ops.cuda_blur, "
-            "hipe_tpu_torch.ops.cuda_chain, "
+            "hipe_tpu_torch.ops.cuda_chain, hipe_tpu_torch.ops.cuda_rank_chain, "
             "hipe_tpu_torch.ops._build; "
             "hipe_tpu_torch.DeviceStreamRunner, hipe_tpu_torch.PIPELINES, "
-            "hipe_tpu_torch.filter_chain, hipe_tpu_torch.register_lut_filter; "
+            "hipe_tpu_torch.filter_chain, hipe_tpu_torch.register_lut_filter, "
+            "hipe_tpu_torch.register_rank_filter, "
+            "hipe_tpu_torch.register_kernel_filter; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('hipe_tpu.') or m == 'hipe_tpu' "
             "for m in sys.modules), 'hipe_tpu imported'")
@@ -141,6 +143,14 @@ def test_cli_without_cuda_raises():
     ["stream", "gaussian5", "--num-images", "2"],
     ["stream", "torchport_cli_dim,gaussian3,edge", "--num-images", "2",
      "--lut", "torchport_cli_dim=brightness:0.7"],
+    ["stream", "denoise", "--num-images", "2"],
+    ["stream", "median9", "--num-images", "2"],
+    ["stream", "torchport_cli_q,edge", "--num-images", "2",
+     "--rank", "torchport_cli_q=5:6"],
+    ["stream", "torchport_cli_soft,sharpen", "--num-images", "2",
+     "--kernel", "torchport_cli_soft=1,2,1,2,4,2,1,2,1:16"],
+    ["stream", "torchport_cli_emb", "--num-images", "2",
+     "--kernel", "torchport_cli_emb=-1,0,0,0,1,0,0,0,0:1:128"],
 ])
 def test_cli_chains_without_cuda_raise(argv):
     if torch.cuda.is_available():
@@ -151,10 +161,18 @@ def test_cli_chains_without_cuda_raise(argv):
 
 @pytest.mark.parametrize("argv,msg", [
     (["stream", "nope"], "unknown pipeline"),
-    (["stream", "gaussian3,median"], "not ported"),
-    (["stream", "median"], "not ported"),
+    (["stream", "gaussian3,equalize"], "unknown filter stage"),
+    (["stream", "mode"], "not ported"),
     (["stream", "x,edge", "--lut", "x=brightness:-1"], "bad --lut"),
     (["stream", "edge", "--lut", "torchport_cli_bad=1,2,3"], "256 entries"),
+    (["stream", "edge", "--rank", "torchport_cli_r=5:25"], "bad --rank"),
+    (["stream", "edge", "--rank", "torchport_cli_r=4:2"], "size must be odd"),
+    (["stream", "edge", "--rank", "torchport_cli_r5"], "expected NAME=SIZE:RANK"),
+    (["stream", "edge", "--kernel", "torchport_cli_k=1,2,1:0"], "bad --kernel"),
+    (["stream", "edge", "--kernel", "torchport_cli_k=1,2,x,4,5,6,7,8,9"], "bad --kernel"),
+    (["stream", "edge", "--kernel", "torchport_cli_k=1,1,1,1,1,1,1,1,1:9:0.3"],
+     "multiple of 0.5"),
+    (["stream", "edge", "--kernel", "median=1,1,1,1,1,1,1,1,1"], "builtin"),
 ])
 def test_cli_bad_names_and_luts_print_one_error_line(argv, msg, capsys):
     assert cli.main(argv) == 1

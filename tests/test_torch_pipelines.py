@@ -11,7 +11,8 @@ from hipe_tpu.models import pipelines as jplib
 from hipe_tpu_torch.models import pipelines as tplib
 
 NAMES = ["blur3", "blur5", "blur7", "blur9", "sharpen", "edge", "chain",
-         "invert", "solarize", "posterize"]
+         "median", "denoise", "erode", "dilate", "open", "close", "median5",
+         "median7", "median9", "invert", "solarize", "posterize"]
 
 
 def _rng(seed):
@@ -46,7 +47,7 @@ def test_registry_and_radius():
         assert tplib.get(name).filters == jplib.get(name).filters
 
 
-@pytest.mark.parametrize("name", ["median", "denoise", "erode", "equalize", "nope"])
+@pytest.mark.parametrize("name", ["mode", "mode5", "autocontrast", "equalize", "nope"])
 def test_unported_pipelines_raise(name):
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tplib.get(name)
@@ -64,7 +65,7 @@ def test_get_takes_bare_stages_and_stage_sequences(spec):
         np.asarray(want.apply_planar(jnp.asarray(x), use_pallas=True, interpret=True)))
 
 
-@pytest.mark.parametrize("spec", ["pil_emboss", ("gaussian3", "median"), ("nope",)])
+@pytest.mark.parametrize("spec", ["mode", ("gaussian3", "equalize"), ("nope",)])
 def test_get_rejects_unported_and_unknown_stages(spec):
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tplib.get(spec)
@@ -74,8 +75,10 @@ def test_unported_names_are_hipe_tpu_pipelines_or_stages():
     from hipe_tpu.ops import blur as jblur
 
     assert tplib.UNPORTED_PIPELINES <= set(jplib.PIPELINES) - set(tplib.PIPELINES)
-    # Every pipeline of hipe_tpu is ported or named as still to port.
+    # Every pipeline of hipe_tpu is ported or named as still to port, and
+    # what is still to port is the global-statistics family, no stage.
     for name in jplib.PIPELINES:
-        assert (name in tplib.PIPELINES or name in tplib.UNPORTED_PIPELINES
-                or name in tplib.tblur.UNPORTED_STAGES), name
-    assert tplib.tblur.UNPORTED_STAGES <= set(jblur.FILTERS)
+        assert (name in tplib.PIPELINES) != (name in tplib.UNPORTED_PIPELINES), name
+    for name in tplib.UNPORTED_PIPELINES:
+        assert isinstance(jplib.PIPELINES[name], jplib.GlobalStatsPipeline), name
+        assert name not in jblur.FILTERS, name

@@ -8,8 +8,11 @@ Phases, one line each:
 1. Environment: torch, CUDA, nvcc, Triton and the card's name and power
    limit. Fails unless ``torch.cuda.is_available()``; never runs on the CPU.
 2. Builds kernels K1 (``hipe_tpu_torch/csrc/blur_planar.cu``), K2
-   (``hipe_tpu_torch/csrc/chain_planar.cu``) and K3
-   (``hipe_tpu_torch/csrc/rank_chain_planar.cu``) from the checkout's sources.
+   (``hipe_tpu_torch/csrc/chain_planar.cu``), K3
+   (``hipe_tpu_torch/csrc/rank_chain_planar.cu``), K4
+   (``hipe_tpu_torch/csrc/tiled_blur_planar.cu``) and K5
+   (``hipe_tpu_torch/csrc/tiled_stage_planar.cu``) from the checkout's
+   sources, one ``nvcc`` a source, all at once.
 3. Holds K1 against its plain PyTorch version on distinct random planes:
    radius 1-4, clamp and valid modes, ragged shapes, one full-stream pass,
    and every ``rows_per_block`` the autotune sweeps. Max-abs error must be 0.
@@ -30,9 +33,42 @@ Each main path also compares the stream after 3 chained passes with the
 plain version's and times the plain version's pass for the record; only the
 path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
 
-Then one JSON line of per-kernel results, the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
-and the script exits non-zero.
+9. Holds K1's rows entry against the plain rows blur: C in {1, 3, 4},
+   radius 1-4, clamp and valid, ragged shapes, every ``rows_per_block``
+   whose tile fits shared memory, and the full ``(5000, 256, 768)`` rows
+   stream.
+10. Holds K2's rows entry against the plain rows chain the same way, the
+    full rows stream for ``chain``; for the record, ``chain`` through the rows
+    entry over the full rows stream, timed beside its plain version.
+11. Holds K4 against the plain blur: radius 1-4, clamp and valid, planes of
+    ``(3, 2250, 4000)`` and ragged shapes (tiles smaller than the plane in
+    both axes, H or W below 2r+1), every tile shape the autotune sweeps;
+    for the record, K4's blur3 over the 5000-image planar stream, to set
+    beside K1's (phase 6).
+12. Holds K5 against the plain stage the same way, for every stage kind
+    (sharpen, edge, point stages and a LUT, median, erode, dilate, ranks of
+    size 5/7/9 and a registered one, ``pil_*`` and a registered kernel).
+13. The rows main path: blur3 over the resident 5000-image rows stream
+    ``(5000, 256, 768)`` through ``Pipeline.apply_rows`` (a sweep of
+    ``rows_per_block``, three timing sessions, the first image against the
+    NumPy oracle, 3 chained passes against the plain rows version); only
+    K1's rows entry may launch.
+14. The large-frame main paths: ``DeviceStreamRunner`` over 100 frames of
+    ``checker_image(2250, 4000, 3, seed=0)`` (2.7 GB) for ``chain`` (K4,
+    K5, K5 a pass) and ``blur3`` (K4): autotune of the tile shape, verify,
+    three sessions, the device's idle share (torch.profiler), 3 chained
+    passes against the plain chain; only K4 and K5 may launch. K4's and
+    K5's own times are taken at the chosen tile,
+    and the fused route (K2 or K1 at the tallest tile that fits) is timed
+    for the record.
+
+Then one JSON line of per-kernel results (each kernel's launches on its
+main path, its worst error against the plain version, its time and the
+plain version's a pass, and its bound: the larger of the bytes it must move
+over the card's 3.35 TB/s and the operations it must do on its uint8 inputs
+over the card's int8 peak), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises and the script exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -53,10 +89,20 @@ SIDE = 256
 CHANNELS = 3
 PASSES = 10
 SESSIONS = 3
-# Planes per call of the plain version on the card: its int32 temporaries
-# for the whole (15000, 256, 256) stream would be ~3.9 GB each.
-PLAIN_CHUNK = 1000
+# Pixels per call of the plain version on the card (1000 planes of 256x256,
+# 7 of 4000x2250): its int32 temporaries for the whole (15000, 256, 256)
+# stream would be ~3.9 GB each.
+PLAIN_CHUNK_PIXELS = 1000 * 256 * 256
 SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1))
+ROWS_SHAPES = ((4, 240, 320), (3, 37, 53), (2, 9, 1))  # (B, H, W pixels)
+LARGE_H, LARGE_W, LARGE_FRAMES = 2250, 4000, 100
+TILED_SHAPES = ((3, LARGE_H, LARGE_W), (2, 131, 1100), (3, 2, 700), (2, 150, 3),
+                (1, 1, 1))
+ODD_TILE = (3, 5)  # besides the autotune's tile shapes
+# The card's peaks (data sheet; H100 SXM, dense): device memory, and
+# operations on 8-bit integers, the type of every kernel's inputs.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 LUT_NAME = "dim"  # brightness_lut(0.7), registered in phase 4
 RANK_NAME = "q"  # PIL RankFilter(5, 6), registered in phase 5
 KERNEL_NAME = "tilt"  # an asymmetric 5x5 kernel, registered in phase 5
@@ -86,6 +132,9 @@ K3_CHAINS = (
     (RANK_NAME, "edge"),
     (LUT_NAME, KERNEL_NAME, "median"),
 )
+K5_STAGES = ("sharpen", "edge", "invert", "solarize", "posterize4", LUT_NAME, "median",
+             "erode", "dilate", "median5", RANK_NAME, "median7", "median9", "pil_emboss",
+             "pil_smooth_more", KERNEL_NAME)
 
 
 def _run(cmd: list[str]) -> str:
@@ -121,35 +170,113 @@ def phase_env() -> str:
 
 
 def phase_build(card: str) -> None:
-    from hipe_tpu_torch.ops import _build, cuda_blur, cuda_chain, cuda_rank_chain
+    import re
+
+    from hipe_tpu_torch.ops import _build, cuda_blur, cuda_chain, cuda_rank_chain, cuda_tiled
 
     t0 = time.perf_counter()
     lib = _build.build()
-    cuda_blur._kernel_lib()
-    cuda_chain._kernel_lib()
-    cuda_rank_chain._kernel_lib()
+    for mod in (cuda_blur, cuda_chain, cuda_rank_chain, cuda_tiled):
+        mod._kernel_lib()
     secs = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
-    ptxas = "; ".join(ln.split("info    : ")[-1] for ln in log.splitlines()
-                      if "Used" in ln)
-    print(f"[2 build] {lib} in {secs:.2f} s (0 s: already built); ptxas: "
-          f"{ptxas or 'no report'} [{card}]", flush=True)
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
+    ptxas = (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
+             f"{spills} bytes of spill stores in all" if regs else "no report")
+    print(f"[2 build] {lib} in {secs:.2f} s (0 s: already built); ptxas: {ptxas} "
+          f"(full report: build.log beside it) [{card}]", flush=True)
+
+
+def _chunk(x: torch.Tensor) -> int:
+    """Planes (or images) a call of at most PLAIN_CHUNK_PIXELS."""
+    return max(1, PLAIN_CHUNK_PIXELS // (x.shape[1] * x.shape[2]))
 
 
 def plain_chunked(x: torch.Tensor, names: tuple, h_pad: bool = True) -> torch.Tensor:
     """The plain PyTorch chain, in chunks of planes (its int32 temporaries)."""
     from hipe_tpu_torch.ops.blur import filter_chain
 
-    return torch.cat([filter_chain(x[i:i + PLAIN_CHUNK], names, h_axis=-2, w_axis=-1,
-                                   h_pad=h_pad)
-                      for i in range(0, x.shape[0], PLAIN_CHUNK)])
+    k = _chunk(x)
+    return torch.cat([filter_chain(x[i:i + k], names, h_axis=-2, w_axis=-1, h_pad=h_pad)
+                      for i in range(0, x.shape[0], k)])
+
+
+def plain_rows_chunked(x: torch.Tensor, channels: int, names: tuple,
+                       h_pad: bool = True) -> torch.Tensor:
+    """The plain PyTorch rows chain, in chunks of images."""
+    from hipe_tpu_torch.ops.blur import filter_chain_rows
+
+    k = _chunk(x)
+    return torch.cat([filter_chain_rows(x[i:i + k], channels, names, h_pad=h_pad)
+                      for i in range(0, x.shape[0], k)])
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return max(int((a[i:i + PLAIN_CHUNK].int() - b[i:i + PLAIN_CHUNK].int()).abs().max())
-               for i in range(0, a.shape[0], PLAIN_CHUNK))
+    k = _chunk(a)
+    return max(int((a[i:i + k].int() - b[i:i + k].int()).abs().max())
+               for i in range(0, a.shape[0], k))
+
+
+def stage_ops(name: str) -> int:
+    """Integer operations one output pixel of a stage takes, a multiply-add
+    counted as two (as the card's peak counts them): a gaussian 2(2r+1)
+    multiply-adds and a shift; sharpen 5 multiply-adds and a clamp (2); edge
+    two gradients of 6 multiply-adds, two abs, an add and a min; the 3x3
+    median Paeth's 19 min/max; erode and dilate 8; a size-n rank 8 rounds of
+    n^2 compares and n^2 adds (the count the data needs: always all 8); a
+    size-n kernel n^2 multiply-adds, the divide and clamp; a point stage 1."""
+    from hipe_tpu_torch.ops import blur as tblur
+
+    if name in tblur.GAUSSIANS:
+        return 8 * tblur.FILTER_RADIUS[name] + 5
+    if name in tblur.RANK_STAGES:
+        return 16 * tblur.RANK_STAGES[name][0] ** 2 + 8
+    if name in tblur.KERNEL_STAGES:
+        return 2 * tblur.KERNEL_STAGES[name]["size"] ** 2 + 4
+    return {"sharpen": 12, "edge": 28, "median": 19, "erode": 8, "dilate": 8}.get(name, 1)
+
+
+def bound(launch_bytes: int, names: tuple, pixels: int) -> tuple[float, str]:
+    """(ms, what bounds it): the least time for launches that move
+    ``launch_bytes`` (each input read once, each output written once) and
+    run the stages ``names`` over ``pixels`` output pixels."""
+    t_bytes = launch_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(stage_ops(nm) for nm in names) * pixels / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_counts() -> dict:
+    """Every kernel wrapper's launch counter, set to 0: {label: wrapper}."""
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda, filter_chain_rows_cuda
+    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+    from hipe_tpu_torch.ops.cuda_tiled import (filter_stage_planar_tiled_cuda,
+                                               gaussian_blur_planar_tiled_cuda)
+
+    wrappers = {"K1": gaussian_blur_planar_cuda, "K1 rows": gaussian_blur_rows_cuda,
+                "K2": filter_chain_planar_cuda, "K2 rows": filter_chain_rows_cuda,
+                "K3": rank_chain_planar_cuda, "K4": gaussian_blur_planar_tiled_cuda,
+                "K5": filter_stage_planar_tiled_cuda}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def check_counts(wrappers: dict, expect: dict, path: str) -> dict:
+    """The counts since reset_counts; raises unless each kernel in
+    ``expect`` launched at least that often and no other launched."""
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    for k, n in counts.items():
+        if k in expect and n < expect[k]:
+            raise AssertionError(f"{k} launched {n} times on the {path} main path, "
+                                 f"fewer than the {expect[k]} passes timed")
+        if k not in expect and n:
+            raise AssertionError(f"{k} launched {n} times on the {path} main path, "
+                                 "which is not its kernel's")
+    return counts
 
 
 def phase_kernel_vs_plain(card: str) -> int:
@@ -255,36 +382,46 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_busy(fn) -> tuple[float, float]:
+    """(CUDA-event window ms around ``fn()``, kernel ms in it, from the
+    kernel times torch.profiler records); raises if it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("torch.profiler recorded no kernel time on the card: "
+                             "the device's idle share is not measured")
+    return start.elapsed_time(end), busy_us / 1e3
+
+
 def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
     """Drive one pipeline's 5000-image stream; the launch counts over it alone."""
-    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
-    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda, is_band_chain
-    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+    from hipe_tpu_torch.ops.cuda_chain import is_band_chain
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 
-    wrappers = {"K1": gaussian_blur_planar_cuda, "K2": filter_chain_planar_cuda,
-                "K3": rank_chain_planar_cuda}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = reset_counts()
     runner = DeviceStreamRunner(pipeline, num_images=NUM_IMAGES, device="cuda")
     timings = runner.autotune()
     err = runner.verify_max_abs_err()
     sessions = [runner.measure_throughput(passes=PASSES, reps=3)
                 for _ in range(SESSIONS)]
-    counts = {k: fn.launches for k, fn in wrappers.items()}
     names = runner.pipeline.filters
     kernel = ("K1" if runner.pipeline.single_gaussian
               else "K2" if is_band_chain(names) else "K3")
+    counts = check_counts(wrappers, {kernel: SESSIONS * 3 * PASSES}, pipeline)
     if err != 0:
         raise AssertionError(f"{pipeline} main path max_abs_err {err}")
-    timed = SESSIONS * 3 * PASSES
-    if counts[kernel] < timed:
-        raise AssertionError(f"{kernel} launched {counts[kernel]} times on the {pipeline} "
-                             f"main path, fewer than the {timed} passes timed")
-    for other, n in counts.items():
-        if other != kernel and n:
-            raise AssertionError(f"{other} launched {n} times on the {pipeline} "
-                                 "main path, which is not its kernel's")
     # The stream after 3 chained passes, against the plain version's.
     got = runner.run_passes(3)
     want = runner.stream
@@ -305,13 +442,272 @@ def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
           f"{med['per_pass_s'] * 1e3:.4f} ms, {med['img_per_s']:.1f} img/s, "
           f"{med['gb_per_s']:.1f} GB/s; plain per-pass {plain_ms:.4f} ms; "
           f"{kernel} launches {counts[kernel]} [{card}]", flush=True)
+    bound_ms, bound_by = bound(2 * runner.stream.numel(), names, runner.stream.numel())
     del runner, got
     torch.cuda.empty_cache()
     return {"launches": counts[kernel], "ms": med["per_pass_s"] * 1e3,
-            "plain_ms": plain_ms, "chain_err": chain_err}
+            "plain_ms": plain_ms, "chain_err": chain_err, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_against(label: str, fn, want: torch.Tensor, what: str) -> int:
+    """Launch ``fn()`` once, synchronize, and hold it against ``want``."""
+    got = fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{label} != plain: {what}: max-abs {err}")
+    return err
+
+
+def phase_rows_vs_plain(card: str, phase: str, label: str, fn, counter, chains: tuple,
+                        seed: int, record: bool = False) -> int:
+    """Hold a rows entry (``fn(rows, c, names, ...)``, launching through the
+    wrapper ``counter``) against the plain rows chain: C in {1, 3, 4},
+    ``chains`` on the rows shapes and the first of them on the full rows
+    stream, clamp and valid, every rows_per_block whose tile fits shared
+    memory. With ``record``, also time the first chain over the full rows
+    stream at each of those rows_per_block, and its plain version, for the
+    record."""
+    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK, fused_shared_bytes
+    from hipe_tpu_torch.ops.blur import chain_radius
+    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    before = counter.launches
+    cases = [((NUM_IMAGES, SIDE, SIDE), CHANNELS, chains[0], h_pad) for h_pad in (True, False)]
+    cases += [(shape, c, names, h_pad) for shape in ROWS_SHAPES for c in (1, 3, 4)
+              for names in chains for h_pad in (True, False)
+              if h_pad or shape[1] > 2 * chain_radius(names)]
+    checked = 0
+    for (b, h, w), c, names, h_pad in cases:
+        x = torch.randint(0, 256, (b, h, w * c), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        want = plain_rows_chunked(x, c, names, h_pad)
+        for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, want.shape[1]}):
+            if fused_shared_bytes(min(rpb, want.shape[1]), w * c, names) > SHARED_BYTES_PER_BLOCK:
+                continue  # the launch is refused; the card-only tests hold that
+            check_against(label, lambda: fn(x, c, names, h_pad=h_pad, rows_per_block=rpb),
+                          want, f"rows {(b, h, w * c)} C={c} {names} h_pad={h_pad} "
+                                f"rows_per_block={rpb}")
+            checked += 1
+        del x, want
+    grew = counter.launches - before
+    if grew != checked:
+        raise AssertionError(f"{label} launch counter grew by {grew}, expected {checked}")
+    note = ""
+    if record:
+        names = chains[0]
+        x = torch.randint(0, 256, (NUM_IMAGES, SIDE, SIDE * CHANNELS), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        out = torch.empty_like(x)
+        times = {rpb: cuda_ms(lambda: fn(x, CHANNELS, names, rows_per_block=rpb, out=out),
+                              reps=PASSES)
+                 for rpb in ROWS_PER_BLOCK_CANDIDATES
+                 if fused_shared_bytes(rpb, SIDE * CHANNELS, names) <= SHARED_BYTES_PER_BLOCK}
+        best = min(times, key=times.get)
+        plain_ms = cuda_ms(lambda: plain_rows_chunked(x, CHANNELS, names))
+        note = (f"; for the record, {names} over the {NUM_IMAGES}-image rows stream "
+                f"{tuple(x.shape)}: {times[best]:.4f} ms a pass at rows_per_block {best}, "
+                f"plain {plain_ms:.4f} ms")
+        del x, out
+    print(f"[{phase} {label} vs plain] {checked} launches over {len(cases)} (rows shape, C, "
+          f"chain, h_pad) cases, max_abs_err 0{note} [{card}]", flush=True)
+    return 0
+
+
+def phase_tiled_vs_plain(card: str, phase: str, label: str, fn, counter, stages: tuple,
+                         seed: int, record: str | None = None) -> int:
+    """Hold a tiled kernel (``fn(x, name, tile=, h_pad=)``, one stage,
+    launching through the wrapper ``counter``) against the plain stage on
+    the tiled shapes, clamp and valid, every tile shape the autotune sweeps
+    and an odd one. With ``record``, a stage name, also time it over the
+    5000-image planar stream at every tile shape, for the record."""
+    from hipe_tpu_torch.ops.blur import FILTER_RADIUS
+    from hipe_tpu_torch.runtime.device_stream import TILE_COLS_CANDIDATES, TILE_ROWS_CANDIDATES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles = [(th, tw) for th in TILE_ROWS_CANDIDATES for tw in TILE_COLS_CANDIDATES]
+    tiles.append(ODD_TILE)
+    before = counter.launches
+    cases = [(shape, name, h_pad) for shape in TILED_SHAPES for name in stages
+             for h_pad in (True, False) if h_pad or shape[1] > 2 * FILTER_RADIUS[name]]
+    checked = 0
+    for shape, name, h_pad in cases:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+        want = plain_chunked(x, (name,), h_pad)
+        for tile in tiles:
+            check_against(label, lambda: fn(x, name, tile=tile, h_pad=h_pad), want,
+                          f"planes {shape} {name} h_pad={h_pad} tile={tile}")
+            checked += 1
+        del x, want
+    grew = counter.launches - before
+    if grew != checked:
+        raise AssertionError(f"{label} launch counter grew by {grew}, expected {checked}")
+    note = ""
+    if record is not None:
+        x = torch.randint(0, 256, (NUM_IMAGES * CHANNELS, SIDE, SIDE), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        out = torch.empty_like(x)
+        times = {t: cuda_ms(lambda: fn(x, record, tile=t, out=out), reps=PASSES)
+                 for t in tiles[:-1]}
+        best = min(times, key=times.get)
+        note = (f"; for the record, {record} over the {NUM_IMAGES}-image planar stream "
+                f"{tuple(x.shape)}: {times[best]:.4f} ms a pass at tile {best} (slowest "
+                f"{max(times.values()):.4f})")
+        del x, out
+    print(f"[{phase} {label} vs plain] {checked} launches over {len(cases)} (shape, stage, "
+          f"h_pad) cases, {len(tiles)} tile shapes each, max_abs_err 0{note} [{card}]",
+          flush=True)
+    return 0
+
+
+def phase_rows_main_path(card: str) -> dict:
+    """blur3 over the resident 5000-image rows stream through Pipeline.apply_rows."""
+    from hipe_tpu_torch.models.pipelines import get
+    from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
+    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+    from hipe_tpu_torch.utils.images import checker_image
+
+    wrappers = reset_counts()
+    pipe = get("blur3")
+    image = checker_image(SIDE, SIDE, CHANNELS, seed=0)
+    lane = SIDE * CHANNELS
+    one = torch.from_numpy(image.reshape(1, SIDE, lane)).cuda()
+    rows = one.expand(NUM_IMAGES, SIDE, lane).contiguous()
+    bufs = (torch.empty_like(rows), torch.empty_like(rows))
+
+    def passes(rpb: int, r: int) -> torch.Tensor:
+        x = rows
+        for i in range(r):
+            x = pipe.apply_rows(x, CHANNELS, rows_per_block=rpb, out=bufs[i % 2])
+        return x
+
+    fits = [rpb for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, SIDE})
+            if pipe.rows_entry_fits(SIDE, SIDE, CHANNELS, rows_per_block=rpb)]
+    tune = {rpb: cuda_ms(lambda: passes(rpb, PASSES)) / PASSES for rpb in fits}
+    best = min(tune, key=tune.get)
+    sessions = sorted(cuda_ms(lambda: passes(best, PASSES), reps=3) / PASSES
+                      for _ in range(SESSIONS))
+    first = passes(best, 1)[0].cpu().numpy().reshape(SIDE, SIDE, CHANNELS)
+    err = int(abs(first.astype(int) - gaussian_blur_int_oracle(image).astype(int)).max())
+    got = passes(best, 3)
+    counts = check_counts(wrappers, {"K1 rows": SESSIONS * 3 * PASSES}, "rows blur3")
+    want = rows
+    for _ in range(3):
+        want = plain_rows_chunked(want, CHANNELS, pipe.filters)
+    chain_err = max_abs_err(got, want)
+    if err or chain_err:
+        raise AssertionError(f"rows blur3 main path: max_abs_err {err}, after 3 chained "
+                             f"passes {chain_err}")
+    del want, got
+    plain_ms = cuda_ms(lambda: plain_rows_chunked(rows, CHANNELS, pipe.filters))
+    ms = sessions[len(sessions) // 2]
+    print(f"[13 rows main path] blur3 apply_rows {NUM_IMAGES}x{SIDE}x{lane} rows: sweep "
+          f"{ {k: round(v, 4) for k, v in tune.items()} } ms/pass, chose rows_per_block "
+          f"{best}; max_abs_err {err} (oracle), {chain_err} (3 chained passes vs plain); "
+          f"sessions {[round(t, 4) for t in sessions]} ms/pass, median {ms:.4f} ms, "
+          f"{NUM_IMAGES / ms * 1e3:.1f} img/s, {2 * rows.numel() / ms / 1e6:.1f} GB/s; plain "
+          f"per-pass {plain_ms:.4f} ms; K1 rows launches {counts['K1 rows']} [{card}]",
+          flush=True)
+    del rows, bufs
+    torch.cuda.empty_cache()
+    return {"launches": counts["K1 rows"], "ms": ms, "plain_ms": plain_ms,
+            "chain_err": chain_err}
+
+
+def phase_large_frames(card: str, pipeline: str) -> dict:
+    """Drive 100 frames of 4000x2250 through DeviceStreamRunner on K4/K5."""
+    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK, fused_shared_bytes
+    from hipe_tpu_torch.ops import cuda_tiled
+    from hipe_tpu_torch.ops.blur import FILTER_RADIUS, GAUSSIANS
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+    from hipe_tpu_torch.utils.images import checker_image
+
+    wrappers = reset_counts()
+    image = checker_image(LARGE_H, LARGE_W, CHANNELS, seed=0)
+    runner = DeviceStreamRunner(pipeline, num_images=LARGE_FRAMES, image=image, device="cuda")
+    if not runner.tiled:
+        raise AssertionError(f"{pipeline} at {LARGE_W}x{LARGE_H} does not route tiled")
+    names = runner.pipeline.filters
+    timings = runner.autotune()
+    err = runner.verify_max_abs_err()
+    sessions = [runner.measure_throughput(passes=PASSES, reps=3) for _ in range(SESSIONS)]
+    busy = device_busy(lambda: runner.run_passes(PASSES))
+    got = runner.run_passes(3)
+    timed = SESSIONS * 3 * PASSES
+    n_k4 = sum(nm in GAUSSIANS for nm in names)
+    expect = {"K4": timed * n_k4}
+    if len(names) > n_k4:
+        expect["K5"] = timed * (len(names) - n_k4)
+    counts = check_counts(wrappers, expect, f"{pipeline} large-frame")
+    want = runner.stream
+    for _ in range(3):
+        want = plain_chunked(want, names)
+    chain_err = max_abs_err(got, want)
+    if err or chain_err:
+        raise AssertionError(f"{pipeline} large frames: max_abs_err {err}, after 3 "
+                             f"chained passes {chain_err}")
+    del want, got
+    stream, buf = runner.stream, runner._bufs[0]
+    tile = runner.config["tile"]
+    plain_ms = cuda_ms(lambda: plain_chunked(stream, names))
+    # Each kernel's own time a pass at the chosen tile (its stages on the
+    # stream), and the plain version of those stages.
+    k4_names = tuple(nm for nm in names if nm in GAUSSIANS)
+    k5_names = tuple(nm for nm in names if nm not in GAUSSIANS)
+    own = {}
+    for label, stages, fn in (
+            ("K4", k4_names, lambda nm: cuda_tiled.gaussian_blur_planar_tiled_cuda(
+                stream, FILTER_RADIUS[nm], tile=tile, out=buf)),
+            ("K5", k5_names, lambda nm: cuda_tiled.filter_stage_planar_tiled_cuda(
+                stream, nm, tile=tile, out=buf))):
+        if stages:
+            ms = cuda_ms(lambda: [fn(nm) for nm in stages], reps=PASSES)
+            plain = cuda_ms(lambda: [plain_chunked(stream, (nm,)) for nm in stages])
+            own[label] = {"ms": ms, "plain_ms": plain,
+                          "bound": bound(2 * stream.numel() * len(stages), stages,
+                                         stream.numel())}
+    # The fused route at the tallest tile that fits, for the record.
+    rpb = max(r for r in range(1, LARGE_H + 1)
+              if fused_shared_bytes(r, LARGE_W, names) <= SHARED_BYTES_PER_BLOCK)
+    if runner.pipeline.single_gaussian:
+        fused_ms = cuda_ms(lambda: gaussian_blur_planar_cuda(
+            stream, FILTER_RADIUS[names[0]], rows_per_block=rpb, out=buf), reps=PASSES)
+    else:
+        fused_ms = cuda_ms(lambda: filter_chain_planar_cuda(
+            stream, names, rows_per_block=rpb, out=buf), reps=PASSES)
+    by_rate = sorted(sessions, key=lambda x: x["img_per_s"])
+    med = by_rate[len(by_rate) // 2]
+    print(f"[14 large frames] {pipeline} {names} {LARGE_FRAMES}x{LARGE_W}x{LARGE_H}x"
+          f"{CHANNELS} ({stream.numel() / 1e9:.2f} GB): autotune "
+          f"{ {k: round(v * 1e3, 4) for k, v in timings.items()} } ms/pass, chose "
+          f"{runner.tuning['chosen']}; max_abs_err {err}; sessions frames/s "
+          f"{[round(x['img_per_s'], 2) for x in by_rate]}; median per-pass "
+          f"{med['per_pass_s'] * 1e3:.4f} ms, {med['img_per_s']:.2f} frames/s, "
+          f"{med['gb_per_s']:.1f} GB/s; device idle over {PASSES} passes "
+          f"{1 - busy[1] / busy[0]:.2%} (kernels {busy[1]:.3f} of {busy[0]:.3f} ms); "
+          f"plain per-pass {plain_ms:.4f} ms; own "
+          f"{ {k: {'ms': round(v['ms'], 4), 'plain_ms': round(v['plain_ms'], 4)} for k, v in own.items()} }; "
+          f"fused route (rows_per_block {rpb}) {fused_ms:.4f} ms/pass; launches "
+          f"{ {k: n for k, n in counts.items() if n} } [{card}]", flush=True)
+    del runner, stream, buf
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ms": med["per_pass_s"] * 1e3, "plain_ms": plain_ms,
+            "chain_err": chain_err, "own": own, "fused_ms": fused_ms}
 
 
 def main() -> int:
+    from hipe_tpu_torch.ops.blur import FILTER_RADIUS, GAUSSIANS
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_rows_cuda
+    from hipe_tpu_torch.ops.cuda_tiled import (filter_stage_planar_tiled_cuda,
+                                               gaussian_blur_planar_tiled_cuda)
+
     card = phase_env()
     phase_build(card)
     k1_err = phase_kernel_vs_plain(card)
@@ -320,26 +716,58 @@ def main() -> int:
     blur3 = phase_main_path(card, "6", "blur3")
     chain = phase_main_path(card, "7", "chain")
     denoise = phase_main_path(card, "8", "denoise")
+    k1_rows_err = phase_rows_vs_plain(
+        card, "9", "K1 rows",
+        lambda x, c, names, **kw: gaussian_blur_rows_cuda(
+            x, c, FILTER_RADIUS[names[0]], **kw),
+        gaussian_blur_rows_cuda, tuple((g,) for g in GAUSSIANS), seed=3)
+    k2_rows_err = phase_rows_vs_plain(card, "10", "K2 rows", filter_chain_rows_cuda,
+                                      filter_chain_rows_cuda, K2_CHAINS, seed=4, record=True)
+    k4_err = phase_tiled_vs_plain(
+        card, "11", "K4",
+        lambda x, name, **kw: gaussian_blur_planar_tiled_cuda(x, FILTER_RADIUS[name], **kw),
+        gaussian_blur_planar_tiled_cuda, GAUSSIANS, seed=5, record="gaussian3")
+    k5_err = phase_tiled_vs_plain(card, "12", "K5", filter_stage_planar_tiled_cuda,
+                                  filter_stage_planar_tiled_cuda, K5_STAGES, seed=6)
+    rows = phase_rows_main_path(card)
+    large_chain = phase_large_frames(card, "chain")
+    large_blur3 = phase_large_frames(card, "blur3")
+    k4, k5 = large_blur3["own"]["K4"], large_chain["own"]["K5"]
+    # No PyTorch call computes these functions: none takes uint8 planes with
+    # clamp-to-edge borders and truncating integer arithmetic (conv2d takes
+    # float with zero padding; nothing computes a rank window).
+    no_library = None
     print(json.dumps({"kernels": [{
         "name": "blur_planar_u8",
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/blur_planar.cu",
         "replaces": "hipe_tpu/ops/pallas_blur.py:109",
         "also_replaces": ["hipe_tpu/ops/pallas_blur.py:56",
-                          "hipe_tpu/ops/pallas_blur.py:923 (single-gaussian chains)"],
-        "launches": blur3["launches"],
-        "max_abs_err": max(k1_err, blur3["chain_err"]),
+                          "hipe_tpu/ops/pallas_blur.py:923 (single-gaussian chains)",
+                          "hipe_tpu/ops/pallas_blur.py:566 (rows entry)"],
+        "launches": blur3["launches"] + rows["launches"],
+        "max_abs_err": max(k1_err, blur3["chain_err"], k1_rows_err, rows["chain_err"]),
         "ms": blur3["ms"],
         "plain_ms": blur3["plain_ms"],
+        "bound_ms": blur3["bound_ms"],
+        "bound_by": blur3["bound_by"],
+        "library_ms": no_library,
+        "rows_launches": rows["launches"],
+        "rows_ms": rows["ms"],
+        "rows_plain_ms": rows["plain_ms"],
     }, {
         "name": "chain_planar_u8",
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/chain_planar.cu",
         "replaces": "hipe_tpu/ops/pallas_blur.py:923",
+        "also_replaces": ["hipe_tpu/ops/pallas_blur.py:902 (rows entry)"],
         "launches": chain["launches"],
-        "max_abs_err": max(k2_err, chain["chain_err"]),
+        "max_abs_err": max(k2_err, chain["chain_err"], k2_rows_err),
         "ms": chain["ms"],
         "plain_ms": chain["plain_ms"],
+        "bound_ms": chain["bound_ms"],
+        "bound_by": chain["bound_by"],
+        "library_ms": no_library,
     }, {
         "name": "rank_chain_planar_u8",
         "route": "cuda",
@@ -349,6 +777,33 @@ def main() -> int:
         "max_abs_err": max(k3_err, denoise["chain_err"]),
         "ms": denoise["ms"],
         "plain_ms": denoise["plain_ms"],
+        "bound_ms": denoise["bound_ms"],
+        "bound_by": denoise["bound_by"],
+        "library_ms": no_library,
+    }, {
+        "name": "tiled_blur_planar_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/tiled_blur_planar.cu",
+        "replaces": "hipe_tpu/ops/pallas_blur.py:295",
+        "launches": large_blur3["counts"]["K4"] + large_chain["counts"]["K4"],
+        "max_abs_err": max(k4_err, large_blur3["chain_err"], large_chain["chain_err"]),
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound"][0],
+        "bound_by": k4["bound"][1],
+        "library_ms": no_library,
+    }, {
+        "name": "tiled_stage_planar_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/tiled_stage_planar.cu",
+        "replaces": "hipe_tpu/ops/pallas_blur.py:319",
+        "launches": large_chain["counts"]["K5"],
+        "max_abs_err": max(k5_err, large_chain["chain_err"]),
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound"][0],
+        "bound_by": k5["bound"][1],
+        "library_ms": no_library,
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -8,15 +8,21 @@ easy to find:
   (``FILTERS``, ``filter_chain``, ``register_lut_filter``,
   ``register_rank_filter``, ``register_kernel_filter``);
 - :mod:`hipe_tpu_torch.ops.cuda_blur` — the hand-written CUDA stencil K1
-  (``csrc/blur_planar.cu``) that replaces the Pallas blur kernels;
+  (``csrc/blur_planar.cu``) that replaces the Pallas blur kernels, planar
+  and interleaved-rows entries;
 - :mod:`hipe_tpu_torch.ops.cuda_chain` — the hand-written fused chain
-  kernel K2 (``csrc/chain_planar.cu``) that replaces the Pallas band chain;
+  kernel K2 (``csrc/chain_planar.cu``) that replaces the Pallas band chain,
+  planar and interleaved-rows entries;
 - :mod:`hipe_tpu_torch.ops.cuda_rank_chain` — the hand-written fused chain
   kernel K3 (``csrc/rank_chain_planar.cu``) that replaces the Pallas chain
   of rank, nonlinear and registered-kernel stages;
-- :mod:`hipe_tpu_torch.models.pipelines` — ``Pipeline``/``PIPELINES``;
+- :mod:`hipe_tpu_torch.ops.cuda_tiled` — the hand-written 2-D-tiled kernels
+  K4 (``csrc/tiled_blur_planar.cu``) and K5 (``csrc/tiled_stage_planar.cu``)
+  that replace the Pallas halo-tiled kernels for large frames;
+- :mod:`hipe_tpu_torch.models.pipelines` — ``Pipeline``/``PIPELINES``
+  (``apply_planar``, ``apply_rows``, ``apply_nhwc``);
 - :mod:`hipe_tpu_torch.runtime.device_stream` — ``DeviceStreamRunner``,
-  the device-resident 5000-image stream.
+  the device-resident stream (5000 images of 256x256, or large frames).
 
 The package imports ``torch`` and never ``jax``. Importing it loads nothing
 heavy: the exports below resolve on first use.

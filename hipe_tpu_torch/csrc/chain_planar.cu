@@ -2,7 +2,11 @@
 //
 // Replaces the Pallas TPU kernel _chain_mxu_kernel
 // (hipe_tpu/ops/pallas_blur.py:923, both band forms: _mxu_stage, bf16 bands,
-// and _mxu_stage_i8, int8 bands) on its planar entry, filter_chain_planar_pallas.
+// and _mxu_stage_i8, int8 bands) on both its entries: planar
+// (filter_chain_planar_pallas) and interleaved rows (filter_chain_rows_pallas,
+// :902, (B, H, W*C) uint8, where the TPU kernel's bands take pixel stride C).
+// The rows entry is the same kernel with pixel stride C: a stage reads its
+// taps at clamp(x + dx) * C + ch, so the edge clamps a whole pixel.
 // The TPU kernel folds each stage's W pass into a banded matrix for the
 // matrix unit and rolls the H pass. Here every stage is the integer stencil
 // or point op of hipe_tpu/ops/blur.py, summed directly: no band, no float.
@@ -62,14 +66,16 @@ struct Program {
 // One block per (plane, tile of rows_per_block output rows). Output row o
 // of a plane is plane row o + out_off (out_off = 0 clamp, R valid). Both
 // shared buffers hold plane rows [g0 - R, g1 + R) at rows 0.. of the buffer.
+// A row is w pixels of kC bytes (1: planar; 0: the rows entry's c, any).
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
-    chain_planar_u8_kernel(const uint8_t* __restrict__ in,
-                           uint8_t* __restrict__ out,
-                           const uint8_t* __restrict__ luts, int h, int w,
-                           int ho, int out_off, int total_r,
-                           int rows_per_block, int tiles, Program prog) {
+    chain_u8_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                    const uint8_t* __restrict__ luts, int h, int w, int c,
+                    int ho, int out_off, int total_r, int rows_per_block,
+                    int tiles, Program prog) {
   extern __shared__ uint8_t smem[];
-  const int buf_bytes = (rows_per_block + 2 * total_r) * w;
+  const int lanes = w * (kC > 0 ? kC : c);  // bytes a row
+  const int buf_bytes = (rows_per_block + 2 * total_r) * lanes;
   uint8_t* bufs[2] = {smem, smem + buf_bytes};
   const int plane = blockIdx.x / tiles;
   const int g0 = (blockIdx.x - plane * tiles) * rows_per_block + out_off;
@@ -80,21 +86,21 @@ __global__ void __launch_bounds__(kThreads)
   {
     const int a0 = max(base, 0);
     const int a1 = min(g1 + total_r, h);
-    const int count = (a1 - a0) * w;
-    const uint8_t* src = in + (static_cast<size_t>(plane) * h + a0) * w;
-    uint8_t* dst = bufs[0] + (a0 - base) * w;
+    const int count = (a1 - a0) * lanes;
+    const uint8_t* src = in + (static_cast<size_t>(plane) * h + a0) * lanes;
+    uint8_t* dst = bufs[0] + (a0 - base) * lanes;
     for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
   }
   __syncthreads();
 
-  uint8_t* plane_out = out + static_cast<size_t>(plane) * ho * w;
+  uint8_t* plane_out = out + static_cast<size_t>(plane) * ho * lanes;
   int cur = 0;
   for (int k = 0; k < prog.n_stages; ++k) {
     const bool last = k == prog.n_stages - 1;
     const int q = prog.after[k];
     const int r0 = max(g0 - q, 0);
     const int r1 = min(g1 + q, h);
-    const Src s{bufs[cur], w, h, base};
+    const Src<kC> s{bufs[cur], lanes, h, base, w, 0, c};
     uint8_t* dst = last ? plane_out : bufs[cur ^ 1];
     const int dst_base = last ? out_off : base;
     const int arg = prog.arg[k];
@@ -134,20 +140,9 @@ bool stage_ok(int op, int arg, int n_luts) {
   }
 }
 
-}  // namespace
-
-// Run the n_stages-stage program (pairs op, arg in host memory) over n
-// planes of h x w uint8 from `in` into `out`: (n, h, w) with h_pad,
-// (n, h - 2R, w) without, R the chain's total radius. `luts` holds n_luts
-// tables of 256 bytes in device memory (may be null when n_luts is 0).
-// Launches on `stream`, does not synchronize and allocates nothing. Returns
-// the cudaError_t of the launch as an int; a program it does not take (too
-// many stages, an unknown op, a tile beyond shared memory) is refused with
-// an error and leaves no error behind for the next launch.
-extern "C" int hipe_chain_planar_u8(const void* in, void* out, int n, int h,
-                                    int w, const int* program, int n_stages,
-                                    const void* luts, int n_luts, int h_pad,
-                                    int rows_per_block, void* stream) {
+int launch(const void* in, void* out, int n, int h, int w, int c,
+           const int* program, int n_stages, const void* luts, int n_luts,
+           int h_pad, int rows_per_block, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (program == nullptr || n_stages < 1 || n_stages > kMaxStages ||
       n_luts < 0 || (n_luts > 0 && luts == nullptr)) {
@@ -166,29 +161,57 @@ extern "C" int hipe_chain_planar_u8(const void* in, void* out, int n, int h,
     total_r += stage_radius(prog.op[k], prog.arg[k]);
   }
   const int ho = h_pad ? h : h - 2 * total_r;
-  if (n < 1 || h < 1 || w < 1 || ho < 1 || rows_per_block < 1 ||
-      static_cast<long long>(h) * w > INT_MAX) {
+  if (n < 1 || h < 1 || w < 1 || c < 1 || ho < 1 || rows_per_block < 1 ||
+      static_cast<long long>(h) * w * c > INT_MAX) {
     return invalid;
   }
   const int rpb = rows_per_block < ho ? rows_per_block : ho;
   const int tiles = (ho + rpb - 1) / rpb;
   const long long blocks = static_cast<long long>(n) * tiles;
-  const long long smem = 2LL * (rpb + 2 * total_r) * w;
+  const long long smem = 2LL * (rpb + 2 * total_r) * w * c;
   if (blocks > INT_MAX || smem > INT_MAX) return invalid;
+  const auto kernel = c == 1 ? chain_u8_kernel<1> : chain_u8_kernel<0>;
   if (smem > static_cast<long long>(kDefaultSharedBytes)) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chain_planar_u8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) {
       cudaGetLastError();  // clear it, so the next launch does not report it
       return static_cast<int>(e);
     }
   }
-  chain_planar_u8_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                           static_cast<size_t>(smem),
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<const uint8_t*>(luts), h, w, ho, h_pad ? 0 : total_r,
+      static_cast<const uint8_t*>(luts), h, w, c, ho, h_pad ? 0 : total_r,
       total_r, rpb, tiles, prog);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Run the n_stages-stage program (pairs op, arg in host memory) over n
+// planes of h x w uint8 from `in` into `out`: (n, h, w) with h_pad,
+// (n, h - 2R, w) without, R the chain's total radius. `luts` holds n_luts
+// tables of 256 bytes in device memory (may be null when n_luts is 0).
+// Launches on `stream`, does not synchronize and allocates nothing. Returns
+// the cudaError_t of the launch as an int; a program it does not take (too
+// many stages, an unknown op, a tile beyond shared memory) is refused with
+// an error and leaves no error behind for the next launch.
+extern "C" int hipe_chain_planar_u8(const void* in, void* out, int n, int h,
+                                    int w, const int* program, int n_stages,
+                                    const void* luts, int n_luts, int h_pad,
+                                    int rows_per_block, void* stream) {
+  return launch(in, out, n, h, w, 1, program, n_stages, luts, n_luts, h_pad,
+                rows_per_block, stream);
+}
+
+// The same over n images of interleaved rows, (n, h, w * c) uint8 with c
+// channels a pixel: every stage reads its taps a whole pixel apart and
+// clamps at the first and last pixel of a row.
+extern "C" int hipe_chain_rows_u8(const void* in, void* out, int n, int h, int w,
+                                  int c, const int* program, int n_stages,
+                                  const void* luts, int n_luts, int h_pad,
+                                  int rows_per_block, void* stream) {
+  return launch(in, out, n, h, w, c, program, n_stages, luts, n_luts, h_pad,
+                rows_per_block, stream);
 }

@@ -1,8 +1,9 @@
-// The exact integer stages that K2 (chain_planar.cu) and K3
-// (rank_chain_planar.cu) share, and the loop that runs one over a tile.
-// Each stage is a functor: (input buffer, plane row y, column x) -> the
-// stage's value at (y, x), clamping every row and column it reads into the
-// plane. They compute what hipe_tpu/ops/blur.py computes, to the bit.
+// The exact integer stages that K2 (chain_planar.cu), K3
+// (rank_chain_planar.cu) and K5 (tiled_stage_planar.cu) share, and the loop
+// that runs one over a tile of whole rows. Each stage is a functor:
+// (input buffer, plane row y, pixel column x, channel ch) -> the stage's
+// value there, clamping every row and column it reads into the plane. They
+// compute what hipe_tpu/ops/blur.py computes, to the bit.
 
 #pragma once
 
@@ -14,8 +15,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Stage op codes. K2 takes 0-6, K3 every one; hipe_tpu_torch/ops/cuda_chain.py
-// and cuda_rank_chain.py encode the same values.
+// Stage op codes. K2 takes 0-6, K3 every one, K5 every one but gaussian;
+// hipe_tpu_torch/ops/cuda_chain.py and cuda_rank_chain.py encode the same
+// values.
 enum Op : int {
   kGaussian = 0,   // arg: radius 1..4
   kSharpen = 1,
@@ -39,33 +41,50 @@ __constant__ int kTaps[4][9] = {
     {1, 8, 28, 56, 70, 56, 28, 8, 1},
 };
 
-// A stage's input: a shared-memory buffer whose row i holds plane row
-// base + i, full width w; the plane has h rows.
+// A stage's input: a shared-memory buffer whose row i, `pitch` bytes long,
+// holds plane row base + i from pixel column x0 on. The plane has h rows of
+// w pixels, each pixel kC interleaved channel bytes (1: planar; 0: `c`
+// bytes, known only at run time). row(y) clamps y into the plane and gives
+// the offset to add to col(x) + ch; col(x) clamps x.
+template <int kC>
 struct Src {
   const uint8_t* buf;
-  int w;
+  int pitch;
   int h;
   int base;
+  int w;
+  int x0;
+  int c;
 
-  __device__ __forceinline__ const uint8_t* row(int y) const {
-    return buf + (min(max(y, 0), h - 1) - base) * w;
+  __device__ __forceinline__ int stride() const { return kC > 0 ? kC : c; }
+  __device__ __forceinline__ int row(int y) const {
+    return (min(max(y, 0), h - 1) - base) * pitch - x0 * stride();
   }
-  __device__ __forceinline__ int at(int y, int x) const {
-    return buf[(y - base) * w + x];
+  __device__ __forceinline__ int col(int x) const {
+    return min(max(x, 0), w - 1) * stride();
+  }
+  // The pixel at clamped column x of a row() line, channel ch.
+  __device__ __forceinline__ int get(int line, int x, int ch) const {
+    return buf[line + col(x) + ch];
+  }
+  // The pixel (y, x, ch) itself, for a point stage: no clamp needed.
+  __device__ __forceinline__ int at(int y, int x, int ch) const {
+    return buf[(y - base) * pitch + (x - x0) * stride() + ch];
   }
 };
 
 template <int R>
 struct Gaussian {
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+  template <class S>
+  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
     int acc = 0;
 #pragma unroll
     for (int dy = 0; dy <= 2 * R; ++dy) {
-      const uint8_t* line = s.row(y + dy - R);
+      const int line = s.row(y + dy - R);
       int sum = 0;
 #pragma unroll
       for (int dx = 0; dx <= 2 * R; ++dx) {
-        sum += kTaps[R - 1][dx] * line[min(max(x + dx - R, 0), s.w - 1)];
+        sum += kTaps[R - 1][dx] * s.get(line, x + dx - R, ch);
       }
       acc += kTaps[R - 1][dy] * sum;
     }
@@ -73,32 +92,36 @@ struct Gaussian {
   }
 };
 
-// The 3x3 neighbourhood v[dy][dx] of (y, x), clamped, as signed ints.
-__device__ __forceinline__ void load3x3(const Src& s, int y, int x, int v[3][3]) {
-  const int xl = max(x - 1, 0);
-  const int xr = min(x + 1, s.w - 1);
+// The 3x3 neighbourhood v[dy][dx] of (y, x, ch), clamped, as signed ints.
+template <class S>
+__device__ __forceinline__ void load3x3(const S& s, int y, int x, int ch, int v[3][3]) {
+  const int xl = s.col(x - 1) + ch;
+  const int xm = s.col(x) + ch;
+  const int xr = s.col(x + 1) + ch;
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
-    const uint8_t* line = s.row(y + dy - 1);
-    v[dy][0] = line[xl];
-    v[dy][1] = line[x];
-    v[dy][2] = line[xr];
+    const int line = s.row(y + dy - 1);
+    v[dy][0] = s.buf[line + xl];
+    v[dy][1] = s.buf[line + xm];
+    v[dy][2] = s.buf[line + xr];
   }
 }
 
 struct Sharpen {
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+  template <class S>
+  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
     int v[3][3];
-    load3x3(s, y, x, v);
+    load3x3(s, y, x, ch, v);
     const int out = 5 * v[1][1] - v[0][1] - v[2][1] - v[1][0] - v[1][2];
     return min(max(out, 0), 255);
   }
 };
 
 struct Edge {
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
+  template <class S>
+  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
     int v[3][3];
-    load3x3(s, y, x, v);
+    load3x3(s, y, x, ch, v);
     const int gx = (v[0][2] + 2 * v[1][2] + v[2][2]) - (v[0][0] + 2 * v[1][0] + v[2][0]);
     const int gy = (v[2][0] + 2 * v[2][1] + v[2][2]) - (v[0][0] + 2 * v[0][1] + v[0][2]);
     return min(abs(gx) + abs(gy), 255);
@@ -106,44 +129,51 @@ struct Edge {
 };
 
 struct Invert {
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    return 255 - s.at(y, x);
+  template <class S>
+  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
+    return 255 - s.at(y, x, ch);
   }
 };
 
 struct Solarize {
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    const int v = s.at(y, x);
+  template <class S>
+  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
+    const int v = s.at(y, x, ch);
     return v >= 128 ? 255 - v : v;
   }
 };
 
 struct Posterize {
   int mask;
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    return s.at(y, x) & mask;
+  template <class S>
+  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
+    return s.at(y, x, ch) & mask;
   }
 };
 
 struct Lut {
   const uint8_t* table;
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    return __ldg(table + s.at(y, x));
+  template <class S>
+  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
+    return __ldg(table + s.at(y, x, ch));
   }
 };
 
-// Rows [r0, r1) of one stage, written to dst row (y - dst_base), width w.
-template <typename Stage>
-__device__ __forceinline__ void run_stage(const Stage& stage, const Src& s,
+// Rows [r0, r1) of one stage over whole buffered rows (x0 = 0, pitch =
+// w * stride), written to dst row (y - dst_base) of the same pitch.
+template <typename Stage, int kC>
+__device__ __forceinline__ void run_stage(const Stage& stage, const Src<kC>& s,
                                           uint8_t* dst, int dst_base, int r0,
                                           int r1) {
-  const int w = s.w;
-  const int count = (r1 - r0) * w;
-  uint8_t* out = dst + (r0 - dst_base) * w;
+  const int c = s.stride();
+  const int lanes = s.pitch;
+  const int count = (r1 - r0) * lanes;
+  uint8_t* out = dst + (r0 - dst_base) * lanes;
   for (int i = threadIdx.x; i < count; i += kThreads) {
-    const int dy = i / w;
-    const int x = i - dy * w;
-    out[i] = static_cast<uint8_t>(stage(s, r0 + dy, x));
+    const int dy = i / lanes;
+    const int lane = i - dy * lanes;
+    const int x = lane / c;
+    out[i] = static_cast<uint8_t>(stage(s, r0 + dy, x, lane - x * c));
   }
 }
 

@@ -12,7 +12,8 @@
 //
 // Stages (one program entry each, any order, up to kMaxStages): every stage
 // of K2 (gaussian 1..4, sharpen, edge, invert, solarize, posterize, LUT; the
-// same functors, chain_stages.cuh), and
+// same functors, chain_stages.cuh), and these (rank_stages.cuh, shared with
+// K5, tiled_stage_planar.cu):
 //   median                 median of the 3x3 window (Paeth's min/max network)
 //   erode, dilate          min, max of the 3x3 window
 //   rank (size, rank)      rank-th smallest of the size x size window,
@@ -58,6 +59,7 @@
 #include <cstdint>
 
 #include "chain_stages.cuh"
+#include "rank_stages.cuh"
 
 namespace {
 
@@ -70,101 +72,6 @@ struct Program {
   int arg[kMaxStages];
   int size[kMaxStages];   // window edge of a rank or kernel stage
   int after[kMaxStages];  // Q_k: total radius of the stages after stage k
-};
-
-__device__ __forceinline__ int med3(int a, int b, int c) {
-  return max(min(a, b), min(max(a, b), c));
-}
-
-struct Median3 {
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    int v[3][3];
-    load3x3(s, y, x, v);
-    int lo[3], me[3], hi[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int tl = min(v[r][0], v[r][1]);
-      const int th = max(v[r][0], v[r][1]);
-      lo[r] = min(tl, v[r][2]);
-      me[r] = max(tl, min(th, v[r][2]));
-      hi[r] = max(th, v[r][2]);
-    }
-    return med3(max(max(lo[0], lo[1]), lo[2]), med3(me[0], me[1], me[2]),
-                min(min(hi[0], hi[1]), hi[2]));
-  }
-};
-
-template <bool kMax>
-struct Extreme3 {
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    int v[3][3];
-    load3x3(s, y, x, v);
-    int m = v[0][0];
-#pragma unroll
-    for (int i = 1; i < 9; ++i) m = kMax ? max(m, v[i / 3][i % 3]) : min(m, v[i / 3][i % 3]);
-    return m;
-  }
-};
-
-template <int S>
-struct Rank {
-  int rank;
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    constexpr int R = S / 2;
-    int v[S * S];
-#pragma unroll
-    for (int dy = 0; dy < S; ++dy) {
-      const uint8_t* line = s.row(y + dy - R);
-#pragma unroll
-      for (int dx = 0; dx < S; ++dx) {
-        v[dy * S + dx] = line[min(max(x + dx - R, 0), s.w - 1)];
-      }
-    }
-    int acc = 0;
-#pragma unroll
-    for (int bit = 7; bit >= 0; --bit) {
-      const int cand = acc | (1 << bit);  // acc holds only the bits above
-      int below = 0;
-#pragma unroll
-      for (int i = 0; i < S * S; ++i) below += v[i] < cand;
-      if (below <= rank) acc = cand;
-    }
-    return acc;
-  }
-};
-
-// A registered kernel stage; spec = {scale, off2, taps[S*S]}, the tap rows
-// already flipped, row-major.
-template <int S>
-struct Conv {
-  int tap[S * S];
-  int den;
-  int cnum;
-
-  __device__ __forceinline__ explicit Conv(const int* __restrict__ spec) {
-    const int scale = __ldg(spec);
-    den = 2 * scale;
-    cnum = scale * (__ldg(spec + 1) + 1);
-#pragma unroll
-    for (int i = 0; i < S * S; ++i) tap[i] = __ldg(spec + 2 + i);
-  }
-
-  __device__ __forceinline__ int operator()(const Src& s, int y, int x) const {
-    constexpr int R = S / 2;
-    int acc = 0;
-#pragma unroll
-    for (int dy = 0; dy < S; ++dy) {
-      const uint8_t* line = s.row(y + dy - R);
-#pragma unroll
-      for (int dx = 0; dx < S; ++dx) {
-        acc += tap[dy * S + dx] * line[min(max(x + dx - R, 0), s.w - 1)];
-      }
-    }
-    const int num = 2 * acc + cnum;
-    int q = num / den;
-    if (q * den > num) --q;  // floor, for a negative numerator
-    return min(max(q, 0), 255);
-  }
 };
 
 // One block per (plane, tile of rows_per_block output rows), as K2. Output
@@ -205,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
     const int q = prog.after[k];
     const int r0 = max(g0 - q, 0);
     const int r1 = min(g1 + q, h);
-    const Src s{bufs[cur], w, h, base};
+    const Src<1> s{bufs[cur], w, h, base, w, 0, 1};
     uint8_t* dst = last ? plane_out : bufs[cur ^ 1];
     const int dst_base = last ? out_off : base;
     const int arg = prog.arg[k];
@@ -264,8 +171,6 @@ __global__ void __launch_bounds__(kThreads)
 
 using KernelFn = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const int*, int,
                           int, int, int, int, int, int, Program);
-
-bool window_ok(int size) { return size == 3 || size == 5 || size == 7 || size == 9; }
 
 int stage_radius(int op, int arg, int size) {
   switch (op) {

@@ -1,15 +1,22 @@
 """Filter pipelines — the deployable "models" of the engine.
 
 The counterpart of ``hipe_tpu.models.pipelines``. A pipeline is a named
-chain of integer-exact uint8 filters with two paths: :meth:`Pipeline.__call__`
-on channels-last batches (plain PyTorch, any device) and
-:meth:`Pipeline.apply_planar` on planar ``(N, H, W)`` planes, the stream's
-hot path, which runs the hand-written CUDA kernels on the card.
+chain of integer-exact uint8 filters with these paths:
+:meth:`Pipeline.__call__` on channels-last batches (plain PyTorch, any
+device); :meth:`Pipeline.apply_planar` on planar ``(N, H, W)`` planes, the
+stream's hot path; and :meth:`Pipeline.apply_rows` / :meth:`Pipeline.apply_nhwc`
+on interleaved rows ``(B, H, W*C)`` and channels-last batches, the layout of
+the serving path and the library boundary. On the card they run the
+hand-written CUDA kernels.
 
 Single gaussians (``blur3/5/7/9``) run K1, every other chain of band and
 point stages runs the fused chain kernel K2, and every chain with a rank or
 registered-kernel stage runs K3, as ``hipe_tpu`` routes them to its blur
-kernel, ``_chain_mxu_kernel`` and ``_chain_kernel``. The global-statistics
+kernel, ``_chain_mxu_kernel`` and ``_chain_kernel``. A plane too wide for
+those kernels' shared memory (:func:`routes_tiled`, e.g. the reference's
+4000x2250 frames) runs stage by stage on the tiled kernels K4 (gaussian)
+and K5 (every other stage), as ``hipe_tpu`` sends oversized planes to
+``_tiled_blur_kernel`` and ``_tiled_point_kernel``. The global-statistics
 pipelines of ``hipe_tpu`` are listed in ROADMAP.md as still to be ported.
 """
 
@@ -20,8 +27,35 @@ import dataclasses
 import torch
 
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
+from hipe_tpu_torch.ops import cuda_blur
+from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
 from hipe_tpu_torch.ops.cuda_chain import check_stages, filter_chain_planar_cuda
+from hipe_tpu_torch.ops.cuda_tiled import filter_chain_planar_tiled_cuda
+
+# Shared memory a thread block may take on an H100 (227 KB, opted in above
+# the default 48 KB), and the tile height a fused kernel must be able to
+# stage within it for a plane to stay on K1, K2 or K3. The threshold
+# replaces hipe_tpu's WHOLE_PLANE_PIXEL_LIMIT, which is sized to a TPU's VMEM.
+SHARED_BYTES_PER_BLOCK = 232_448
+ROUTE_TILE_ROWS = 32
+
+
+def fused_shared_bytes(rows: int, w: int, names) -> int:
+    """Shared memory of one block of the fused kernel that takes ``names``
+    for a tile of ``rows`` rows of ``w`` bytes and its halo: K1's uint16
+    row sums for a single gaussian, K2's and K3's two uint8 buffers else."""
+    r = tblur.chain_radius(names)
+    if len(names) == 1 and names[0] in tblur.GAUSSIANS:
+        return (rows + 2 * r) * w * 2
+    return 2 * (rows + 2 * r) * w
+
+
+def routes_tiled(h: int, w: int, names) -> bool:
+    """Whether (h, w) planes of the chain go to the tiled kernels K4/K5: the
+    fused kernel cannot stage a :data:`ROUTE_TILE_ROWS`-row tile (or the
+    whole plane, if shorter) plus its halo in :data:`SHARED_BYTES_PER_BLOCK`.
+    Both routes give the same integers."""
+    return fused_shared_bytes(min(ROUTE_TILE_ROWS, h), w, names) > SHARED_BYTES_PER_BLOCK
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,18 +78,28 @@ class Pipeline:
         """Whether the chain is one gaussian stage (K1's; K2 or K3 runs the rest)."""
         return len(self.filters) == 1 and self.filters[0] in tblur.GAUSSIANS
 
+    def routes_tiled(self, h: int, w: int) -> bool:
+        """Whether :meth:`apply_planar` sends (h, w) planes to K4/K5."""
+        return routes_tiled(h, w, self.filters)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Plain path on (..., H, W, C) uint8 batches."""
         return tblur.filter_chain(x, self.filters)
 
     def apply_planar(self, planes: torch.Tensor, *, h_pad: bool = True,
-                     rows_per_block: int | None = None,
+                     rows_per_block: int | None = None, tile=None,
                      out: torch.Tensor | None = None) -> torch.Tensor:
-        """Planar (N, H, W) path: K1, K2 or K3 on the card, plain on the CPU.
+        """Planar (N, H, W) path: K1, K2 or K3 on the card, or K4 and K5 for
+        planes too wide for them; plain on the CPU.
 
         ``h_pad=False`` treats H as halo-padded by :attr:`radius` rows per
-        side and returns the valid interior (row-split shard mode).
+        side and returns the valid interior (row-split shard mode), on
+        either route. ``rows_per_block`` is the fused kernels' launch knob,
+        ``tile`` the tiled kernels'.
         """
+        if self.routes_tiled(planes.shape[-2], planes.shape[-1]):
+            return filter_chain_planar_tiled_cuda(planes, self.filters, tile=tile,
+                                                  h_pad=h_pad, out=out)
         if self.single_gaussian:
             return gaussian_blur_planar_cuda(
                 planes, self.radius, h_pad=h_pad,
@@ -63,6 +107,55 @@ class Pipeline:
         return filter_chain_planar_cuda(
             planes, self.filters, h_pad=h_pad, rows_per_block=rows_per_block,
             out=out)
+
+    def rows_entry_fits(self, h: int, w: int, channels: int, *, h_pad: bool = True,
+                        rows_per_block: int | None = None) -> bool:
+        """Whether K1's rows entry takes (h, w*channels) rows of this
+        pipeline: a single gaussian whose tile fits shared memory (the
+        counterpart of ``hipe_tpu``'s ``nhwc_pallas_eligible``)."""
+        return self.single_gaussian and cuda_blur.shared_bytes(
+            h, w * channels, self.radius, h_pad, rows_per_block) <= SHARED_BYTES_PER_BLOCK
+
+    def apply_rows(self, rows: torch.Tensor, channels: int, *, h_pad: bool = True,
+                   rows_per_block: int | None = None, tile=None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+        """Interleaved rows ``(B, H, W*C)`` uint8, ``hipe_tpu``'s device
+        layout for channels-last data.
+
+        A single gaussian whose tile fits shared memory runs K1's rows entry
+        with no relayout; every other chain, and oversized rows, relayout on
+        the card to planar, run :meth:`apply_planar` (K1, K2, K3 or K4/K5)
+        and relayout back. On the CPU the path is the plain rows chain.
+        ``h_pad=False`` returns the valid interior ``(B, H - 2R, W*C)``.
+        """
+        b, h, lane = rows.shape
+        if channels < 1 or lane % channels:
+            raise ValueError(f"row length {lane} is not a multiple of {channels} channels")
+        w = lane // channels
+        if rows.device.type == "cpu":
+            y = tblur.filter_chain_rows(rows, channels, self.filters, h_pad=h_pad)
+            return y if out is None else out.copy_(y)
+        if self.rows_entry_fits(h, w, channels, h_pad=h_pad, rows_per_block=rows_per_block):
+            return gaussian_blur_rows_cuda(rows, channels, self.radius, h_pad=h_pad,
+                                           rows_per_block=rows_per_block, out=out)
+        planes = rows.view(b, h, w, channels).permute(0, 3, 1, 2).contiguous()
+        planes = planes.view(b * channels, h, w)
+        res = self.apply_planar(planes, h_pad=h_pad, rows_per_block=rows_per_block,
+                                tile=tile)
+        ho = res.shape[1]
+        back = res.view(b, channels, ho, w).permute(0, 2, 3, 1)
+        if out is None:
+            return back.reshape(b, ho, lane)
+        out.view(b, ho, w, channels).copy_(back)
+        return out
+
+    def apply_nhwc(self, x: torch.Tensor, *, h_pad: bool = True,
+                   out: torch.Tensor | None = None, **kw) -> torch.Tensor:
+        """``(B, H, W, C)`` wrapper over :meth:`apply_rows` (a free reshape)."""
+        b, h, w, c = x.shape
+        rows_out = None if out is None else out.view(b, out.shape[1], w * c)
+        y = self.apply_rows(x.reshape(b, h, w * c), c, h_pad=h_pad, out=rows_out, **kw)
+        return y.view(b, y.shape[1], w, c)
 
 
 PIPELINES = {

@@ -2,11 +2,12 @@
 
 The counterpart of ``hipe_tpu.io_.jpeg``'s build-at-first-use of its
 ``csrc/``: every ``hipe_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface::
+Hopper (``sm_90a``), one process a source, all started together, and the
+objects are linked into one shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/hipe_tpu_torch/<key>/libhipe_tpu_torch.so \\
-         hipe_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \\
+         -Xcompiler -fPIC -o build/hipe_tpu_torch/<key>/<source>.o <source>.cu
+    nvcc -shared -o build/hipe_tpu_torch/<key>/libhipe_tpu_torch.so *.o
 
 ``<key>`` hashes the sources, so an edited kernel builds anew and an
 unchanged one is reused. ``build/`` is git-ignored. The library includes no
@@ -62,8 +63,9 @@ def find_nvcc() -> str:
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return it.
 
-    ``-Xptxas -v`` reports each kernel's registers and shared memory; the
-    compiler's output is kept beside the library as ``build.log``.
+    One ``nvcc`` a source, all at once, then one link. ``-Xptxas -v``
+    reports each kernel's registers and shared memory; the compilers'
+    output is kept beside the library as ``build.log``.
     """
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
@@ -74,17 +76,30 @@ def build() -> Path:
     if not srcs:
         raise RuntimeError(f"no CUDA sources in {CSRC}")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *(str(s) for s in srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-o", str(out_dir / f"{src.stem}.{tag}.o"), str(src)]
+            for src in srcs]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    objs = [cmd[cmd.index("-o") + 1] for cmd in cmds]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
+    failed = [(cmd, out) for cmd, p, out in zip(cmds, procs, outputs) if p.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outputs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed.append((link, outputs[-1]))
+    (out_dir / "build.log").write_text("".join(
+        " ".join(cmd) + "\n" + out for cmd, out in zip([*cmds, link], outputs)))
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr.strip()}")
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out.strip()}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 

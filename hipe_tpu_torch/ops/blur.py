@@ -5,9 +5,11 @@ These are the plain tensor versions of every stage: the band, point, rank
 (``ImageFilter.Kernel``, the ``pil_*`` presets) stages. uint8 in, exact
 integer arithmetic, uint8 out, clamp-to-edge borders. They are what the CUDA
 kernels (:mod:`hipe_tpu_torch.ops.cuda_blur`, :mod:`hipe_tpu_torch.ops.cuda_chain`,
-:mod:`hipe_tpu_torch.ops.cuda_rank_chain`) are held against, and what their
-wrappers run for a tensor that lies on the CPU. They work on any layout
-where H and W are identifiable axes (NHWC, HWC, planar ``(N, H, W)``).
+:mod:`hipe_tpu_torch.ops.cuda_rank_chain`, :mod:`hipe_tpu_torch.ops.cuda_tiled`)
+are held against, and what their wrappers run for a tensor that lies on the
+CPU. They work on any layout where H and W are identifiable axes (NHWC, HWC,
+planar ``(N, H, W)``); the ``*_rows`` ops and ``ROWS_FILTERS`` take
+interleaved rows ``(..., H, W*C)`` and clamp a whole pixel at the edges.
 """
 
 from __future__ import annotations
@@ -279,6 +281,147 @@ def chain_radius(names: Sequence[str]) -> int:
     return sum(FILTER_RADIUS[n] for n in names)
 
 
+# ---- Interleaved-rows layout (..., H, W*C) ----
+#
+# Each image row is one W*C vector of interleaved channels (a free reshape of
+# channels-last data, the reference's device buffer layout). The W-axis
+# stencil becomes a stencil with pixel stride C along the last axis, and the
+# edge clamp replicates a whole pixel, a block of C lanes.
+
+
+def _edge_pad_rows(x: torch.Tensor, axis: int, r: int, c: int) -> torch.Tensor:
+    """Clamp-to-edge pad by r *pixels* (blocks of c lanes) along ``axis``."""
+    n = x.shape[axis]
+    first = x.narrow(axis, 0, c)
+    last = x.narrow(axis, n - c, c)
+    reps = [1] * x.dim()
+    reps[axis] = r
+    return torch.cat([first.repeat(reps), x, last.repeat(reps)], dim=axis)
+
+
+def _conv1d_rows(x: torch.Tensor, axis: int, taps: Sequence[int], c: int,
+                 pad: bool) -> torch.Tensor:
+    """1-D integer correlation with pixel stride c along ``axis``."""
+    r = (len(taps) - 1) // 2
+    xp = _edge_pad_rows(x, axis, r, c) if pad else x
+    n = xp.shape[axis] - 2 * r * c
+    acc = None
+    for j, t in enumerate(taps):
+        sl = xp.narrow(axis, j * c, n)
+        term = sl if t == 1 else sl * t
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _rows_stencil(x: torch.Tensor, c: int, h_pad: bool, r: int = 1,
+                  dtype: torch.dtype = torch.int32):
+    """``view(dy, dx)``, dy in [0, 2r] and dx in [-r, r]: the shifted views of
+    ``(..., H, W*C)`` rows for a (2r+1)^2 stencil, clamped per pixel.
+
+    H clamps with ``h_pad`` and is valid-only (r rows fewer at each end)
+    without it, as in :func:`_stencil_r`.
+    """
+    xp = _edge_pad_rows(x.to(dtype), x.dim() - 1, r, c)
+    if h_pad:
+        xp = _edge_pad_axis(xp, x.dim() - 2, r)
+    hn = xp.shape[-2] - 2 * r
+    wn = xp.shape[-1] - 2 * r * c
+    if hn < 1:
+        raise ValueError(f"valid mode needs more than {2 * r} rows, got {xp.shape[-2]}")
+
+    def view(dy: int, dx: int) -> torch.Tensor:
+        return xp.narrow(-2, dy, hn).narrow(-1, (dx + r) * c, wn)
+
+    return view
+
+
+def _check_rows(x: torch.Tensor, channels: int) -> None:
+    if x.dtype != torch.uint8:
+        raise TypeError(f"expected uint8, got {x.dtype}")
+    if channels < 1 or x.shape[-1] % channels:
+        raise ValueError(f"row length {x.shape[-1]} is not a multiple of "
+                         f"{channels} channels")
+
+
+def gaussian_blur_rows(x: torch.Tensor, channels: int, radius: int = 1, *,
+                       h_pad: bool = True) -> torch.Tensor:
+    """Separable binomial blur on interleaved rows ``(..., H, W*C)``, exact."""
+    _check_rows(x, channels)
+    taps, shift = binomial_taps(radius)
+    acc = _conv1d_rows(x.to(torch.int32), x.dim() - 1, taps, channels, pad=True)
+    acc = _conv1d(acc, x.dim() - 2, taps, pad=h_pad)
+    return (acc >> (2 * shift)).to(torch.uint8)
+
+
+def sharpen3x3_rows(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+    _check_rows(x, channels)
+    v = _rows_stencil(x, channels, h_pad)
+    out = 5 * v(1, 0) - v(0, 0) - v(2, 0) - v(1, -1) - v(1, 1)
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def sobel_edge_rows(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+    _check_rows(x, channels)
+    v = _rows_stencil(x, channels, h_pad)
+    gx = (v(0, 1) + 2 * v(1, 1) + v(2, 1)) - (v(0, -1) + 2 * v(1, -1) + v(2, -1))
+    gy = (v(2, -1) + 2 * v(2, 0) + v(2, 1)) - (v(0, -1) + 2 * v(0, 0) + v(0, 1))
+    return (gx.abs() + gy.abs()).clamp(0, 255).to(torch.uint8)
+
+
+def median3x3_rows(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+    _check_rows(x, channels)
+    v = _rows_stencil(x, channels, h_pad, dtype=torch.uint8)
+    return _median_of_9([v(dy, dx) for dy in range(3) for dx in (-1, 0, 1)])
+
+
+def _rank3x3_rows(x, channels, h_pad, reduce_fn):
+    _check_rows(x, channels)
+    v = _rows_stencil(x, channels, h_pad, dtype=torch.uint8)
+    rows = [reduce_fn(reduce_fn(v(dy, -1), v(dy, 0)), v(dy, 1)) for dy in range(3)]
+    return reduce_fn(reduce_fn(rows[0], rows[1]), rows[2])
+
+
+def erode3x3_rows(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+    return _rank3x3_rows(x, channels, h_pad, torch.minimum)
+
+
+def dilate3x3_rows(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+    return _rank3x3_rows(x, channels, h_pad, torch.maximum)
+
+
+def _make_point_filter_rows(fn):
+    def op(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+        _check_rows(x, channels)
+        return fn(x.to(torch.int32)).to(torch.uint8)
+
+    return op
+
+
+# Registry of the rows-layout ops: name -> op(x, channels, *, h_pad). The
+# registries below (LUTs, kernels, ranks) fill it beside FILTERS.
+ROWS_FILTERS = {
+    "gaussian3": functools.partial(gaussian_blur_rows, radius=1),
+    "gaussian5": functools.partial(gaussian_blur_rows, radius=2),
+    "gaussian7": functools.partial(gaussian_blur_rows, radius=3),
+    "gaussian9": functools.partial(gaussian_blur_rows, radius=4),
+    "sharpen": sharpen3x3_rows,
+    "edge": sobel_edge_rows,
+    "median": median3x3_rows,
+    "erode": erode3x3_rows,
+    "dilate": dilate3x3_rows,
+    **{nm: _make_point_filter_rows(fn) for nm, fn in POINT_STAGES.items()},
+}
+
+
+def filter_chain_rows(x: torch.Tensor, channels: int, names: Sequence[str], *,
+                      h_pad: bool = True) -> torch.Tensor:
+    """Filter chain on interleaved rows ``(..., H, W*C)``; ``h_pad`` as in
+    :func:`filter_chain`."""
+    for name in names:
+        x = ROWS_FILTERS[name](x, channels, h_pad=h_pad)
+    return x
+
+
 # ---- Static-LUT point stages (brightness / gamma / arbitrary 256-LUTs) ---
 #
 # Any 256-entry uint8 LUT registers as a radius-0 point stage. hipe_tpu
@@ -326,6 +469,7 @@ def register_lut_filter(name: str, lut) -> None:
     fn = _make_lut_point_fn(lut)
     POINT_STAGES[name] = fn
     FILTERS[name] = _make_point_filter(fn)
+    ROWS_FILTERS[name] = _make_point_filter_rows(fn)
     FILTER_RADIUS[name] = 0
 
 
@@ -407,6 +551,21 @@ def _make_kernel_stage(spec):
     return op
 
 
+def _make_kernel_stage_rows(spec):
+    size, flipped = spec["size"], spec["flipped"]
+    den, cnum = 2 * spec["scale"], spec["scale"] * (spec["off2"] + 1)
+    r = size // 2
+
+    def op(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+        _check_rows(x, channels)
+        v = _rows_stencil(x, channels, h_pad, r)
+        num = 2 * _kernel_acc(lambda dy, dx: v(dy, dx - r), flipped, size) + cnum
+        q = torch.div(num, den, rounding_mode="floor")
+        return q.clamp(0, 255).to(torch.uint8)
+
+    return op
+
+
 def register_kernel_filter(name: str, taps, scale: int | None = None,
                            offset: float = 0.0) -> None:
     """Register a user convolution kernel as a chainable filter stage.
@@ -456,6 +615,7 @@ def register_kernel_filter(name: str, taps, scale: int | None = None,
         raise ValueError(f"{name!r} is already a builtin filter name")
     KERNEL_STAGES[name] = spec
     FILTERS[name] = _make_kernel_stage(spec)
+    ROWS_FILTERS[name] = _make_kernel_stage_rows(spec)
     FILTER_RADIUS[name] = spec["radius"]
 
 
@@ -529,6 +689,18 @@ def _make_rank_stage(size: int, rank: int):
     return op
 
 
+def _make_rank_stage_rows(size: int, rank: int):
+    r = size // 2
+
+    def op(x: torch.Tensor, channels: int, *, h_pad: bool = True) -> torch.Tensor:
+        _check_rows(x, channels)
+        v = _rows_stencil(x, channels, h_pad, r, dtype=torch.uint8)
+        return _rank_select([v(dy, dx) for dy in range(size) for dx in range(-r, r + 1)],
+                            rank)
+
+    return op
+
+
 def register_rank_filter(name: str, size: int, rank: int) -> None:
     """Register ``PIL.ImageFilter.RankFilter(size, rank)`` as a stage.
 
@@ -556,6 +728,7 @@ def register_rank_filter(name: str, size: int, rank: int) -> None:
         raise ValueError(f"{name!r} is already a builtin filter name")
     RANK_STAGES[name] = spec
     FILTERS[name] = _make_rank_stage(*spec)
+    ROWS_FILTERS[name] = _make_rank_stage_rows(*spec)
     FILTER_RADIUS[name] = size // 2
 
 

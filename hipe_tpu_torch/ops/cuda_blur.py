@@ -1,15 +1,18 @@
-"""The binomial blur on the card: wrapper of kernel K1 (``csrc/blur_planar.cu``).
+"""The binomial blur on the card: wrappers of kernel K1 (``csrc/blur_planar.cu``).
 
-The counterpart of ``hipe_tpu.ops.pallas_blur``'s planar blur kernels:
-K1 computes what ``_blur_mxu_kernel`` (``path="mxu"``), ``_blur_kernel``
-(``path="vpu"``) and ``_chain_mxu_kernel`` on a one-stage gaussian chain
-compute, as an exact integer stencil written for Hopper. Every other chain
-runs the fused chain kernel K2 (:mod:`hipe_tpu_torch.ops.cuda_chain`).
+The counterpart of ``hipe_tpu.ops.pallas_blur``'s blur kernels: K1 computes
+what ``_blur_mxu_kernel`` (``path="mxu"``), ``_blur_kernel`` (``path="vpu"``)
+and ``_chain_mxu_kernel`` on a one-stage gaussian chain compute, as an exact
+integer stencil written for Hopper, on planar ``(N, H, W)`` planes
+(:func:`gaussian_blur_planar_cuda`) and on interleaved rows ``(B, H, W*C)``
+(:func:`gaussian_blur_rows_cuda`, ``gaussian_blur_rows_pallas``'s
+counterpart). Every other chain runs the fused chain kernel K2
+(:mod:`hipe_tpu_torch.ops.cuda_chain`).
 
-For a CUDA tensor :func:`gaussian_blur_planar_cuda` launches K1 or raises;
-for a CPU tensor it runs the plain PyTorch version
-(:func:`hipe_tpu_torch.ops.blur.gaussian_blur_planar`), which is also what
-the kernel is held against on the card.
+For a CUDA tensor each wrapper launches K1 or raises; for a CPU tensor it
+runs the plain PyTorch version (:func:`hipe_tpu_torch.ops.blur.gaussian_blur_planar`,
+:func:`hipe_tpu_torch.ops.blur.gaussian_blur_rows`), which is also what the
+kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import functools
 import torch
 
 from hipe_tpu_torch.ops import _build
-from hipe_tpu_torch.ops.blur import gaussian_blur_planar
+from hipe_tpu_torch.ops.blur import GAUSSIANS, gaussian_blur_planar, gaussian_blur_rows
+from hipe_tpu_torch.ops.cuda_chain import check_planar_call
 
 # Output rows per thread block when the caller names none; the runner's
 # autotune sweeps the alternatives.
@@ -33,6 +37,8 @@ def _kernel_lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.hipe_blur_planar_u8.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.hipe_blur_planar_u8.restype = ci
+    lib.hipe_blur_rows_u8.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.hipe_blur_rows_u8.restype = ci
     lib.hipe_cuda_error_string.argtypes = [ci]
     lib.hipe_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -41,6 +47,31 @@ def _kernel_lib() -> ctypes.CDLL:
 def out_rows(h: int, radius: int, h_pad: bool) -> int:
     """Rows of the blurred plane: H with clamping, H - 2r in valid mode."""
     return h if h_pad else h - 2 * radius
+
+
+def shared_bytes(h: int, lanes: int, radius: int, h_pad: bool,
+                 rows_per_block: int | None) -> int:
+    """Shared memory of one K1 block: uint16 row sums of the tile's rows and
+    its 2r halo rows, ``lanes`` bytes a row (W, or W*C for rows)."""
+    rpb = DEFAULT_ROWS_PER_BLOCK if rows_per_block is None else int(rows_per_block)
+    return (min(rpb, out_rows(h, radius, h_pad)) + 2 * radius) * lanes * 2
+
+
+def _check_call(x: torch.Tensor, radius: int, h_pad: bool,
+                rows_per_block: int | None, out: torch.Tensor | None) -> tuple[int, int]:
+    """Check a K1 call on a 3-D uint8 tensor; returns the output rows and
+    rows_per_block."""
+    if not 1 <= radius <= 4:
+        raise ValueError(f"radius must be 1-4, got {radius}")
+    rpb = DEFAULT_ROWS_PER_BLOCK if rows_per_block is None else rows_per_block
+    _, ho, rpb = check_planar_call(x, (GAUSSIANS[radius - 1],), h_pad, rpb, out)
+    return ho, rpb
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _kernel_lib().hipe_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: {msg} (cudaError {rc})")
 
 
 def gaussian_blur_planar_cuda(
@@ -62,44 +93,72 @@ def gaussian_blur_planar_cuda(
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise TypeError(
             f"expected a 3-D uint8 tensor, got {x.dtype} of shape {tuple(x.shape)}")
-    if not 1 <= radius <= 4:
-        raise ValueError(f"radius must be 1-4, got {radius}")
+    ho, rpb = _check_call(x, radius, h_pad, rows_per_block, out)
     n, h, w = x.shape
-    ho = out_rows(h, radius, h_pad)
-    if ho < 1:
-        raise ValueError(f"valid mode needs H > {2 * radius}, got H={h}")
-    rpb = DEFAULT_ROWS_PER_BLOCK if rows_per_block is None else int(rows_per_block)
-    if rpb < 1:
-        raise ValueError(f"rows_per_block must be >= 1, got {rows_per_block}")
-    if out is not None:
-        if (tuple(out.shape) != (n, ho, w) or out.dtype != torch.uint8
-                or out.device != x.device or not out.is_contiguous()):
-            raise ValueError(
-                f"out must be a contiguous uint8 {(n, ho, w)} tensor on "
-                f"{x.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
-        if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
-            raise ValueError("out shares memory with x; the blur is out-of-place")
     if x.device.type == "cpu":
         y = gaussian_blur_planar(x, radius, h_pad=h_pad)
         return y if out is None else out.copy_(y)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
     if out is None:
         out = torch.empty((n, ho, w), dtype=torch.uint8, device=x.device)
-    lib = _kernel_lib()
     with torch.cuda.device(x.device):
-        rc = lib.hipe_blur_planar_u8(
+        rc = _kernel_lib().hipe_blur_planar_u8(
             x.data_ptr(), out.data_ptr(), n, h, w, radius, int(h_pad), rpb,
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = lib.hipe_cuda_error_string(rc).decode()
-        raise RuntimeError(
-            f"blur_planar_u8 launch failed for {(n, h, w)} r={radius} "
-            f"h_pad={h_pad} rows_per_block={rpb}: {msg} (cudaError {rc})")
+    _raise_on(rc, f"blur_planar_u8 launch failed for {(n, h, w)} r={radius} "
+                  f"h_pad={h_pad} rows_per_block={rpb}")
     gaussian_blur_planar_cuda.launches += 1
     return out
 
 
 gaussian_blur_planar_cuda.launches = 0
+
+
+def gaussian_blur_rows_cuda(
+    rows: torch.Tensor,
+    channels: int,
+    radius: int = 1,
+    *,
+    h_pad: bool = True,
+    rows_per_block: int | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Binomial blur of interleaved rows ``(B, H, W*C)`` uint8, radius 1-4.
+
+    The counterpart of ``gaussian_blur_rows_pallas``: each row is W pixels
+    of ``channels`` interleaved bytes, and the W edge clamps a whole pixel.
+    H clamps with ``h_pad`` (output ``(B, H, W*C)``) and is valid-only
+    without it (``(B, H - 2r, W*C)``). ``out`` and ``rows_per_block`` as in
+    :func:`gaussian_blur_planar_cuda`; a tile beyond shared memory
+    (:func:`shared_bytes`) is refused with an error.
+    """
+    ho, rpb = _check_call(rows, radius, h_pad, rows_per_block, out)
+    b, h, lanes = rows.shape
+    if channels < 1 or lanes % channels:
+        raise ValueError(f"row length {lanes} is not a multiple of {channels} channels")
+    if rows.device.type == "cpu":
+        y = gaussian_blur_rows(rows, channels, radius, h_pad=h_pad)
+        return y if out is None else out.copy_(y)
+    if out is None:
+        out = torch.empty((b, ho, lanes), dtype=torch.uint8, device=rows.device)
+    with torch.cuda.device(rows.device):
+        rc = _kernel_lib().hipe_blur_rows_u8(
+            rows.data_ptr(), out.data_ptr(), b, h, lanes // channels, channels,
+            radius, int(h_pad), rpb, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, f"blur_rows_u8 launch failed for {(b, h, lanes)} C={channels} "
+                  f"r={radius} h_pad={h_pad} rows_per_block={rpb}")
+    gaussian_blur_rows_cuda.launches += 1
+    return out
+
+
+gaussian_blur_rows_cuda.launches = 0
+
+
+def gaussian_blur_nhwc_cuda(x: torch.Tensor, radius: int = 1, **kw) -> torch.Tensor:
+    """``(B, H, W, C)`` wrapper of :func:`gaussian_blur_rows_cuda`, the
+    counterpart of ``gaussian_blur_nhwc_pallas``: a free reshape to rows."""
+    b, h, w, c = x.shape
+    out = kw.pop("out", None)
+    if out is not None:
+        out = out.view(b, out.shape[1], w * c)
+    y = gaussian_blur_rows_cuda(x.reshape(b, h, w * c), c, radius, out=out, **kw)
+    return y.view(b, y.shape[1], w, c)

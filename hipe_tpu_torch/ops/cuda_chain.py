@@ -9,9 +9,14 @@ chain (one with a rank-family or registered-kernel stage) goes to K3
 (:mod:`hipe_tpu_torch.ops.cuda_rank_chain`), as ``hipe_tpu`` sends it to
 ``_chain_kernel``.
 
-For a CUDA tensor :func:`filter_chain_planar_cuda` launches K2 or K3 or
-raises; for a CPU tensor it runs the plain PyTorch chain
-(:func:`hipe_tpu_torch.ops.blur.filter_chain`), which is also what the
+:func:`filter_chain_rows_cuda` is K2's rows entry, the counterpart of
+``filter_chain_rows_pallas``: the same band and point chains over
+interleaved rows ``(B, H, W*C)``, a whole pixel clamped at the W edges.
+
+For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
+tensor it runs the plain PyTorch chain
+(:func:`hipe_tpu_torch.ops.blur.filter_chain`,
+:func:`hipe_tpu_torch.ops.blur.filter_chain_rows`), which is also what the
 kernels are held against on the card.
 """
 
@@ -44,6 +49,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.hipe_chain_planar_u8.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, ci,
                                          ci, ci, vp]
     lib.hipe_chain_planar_u8.restype = ci
+    lib.hipe_chain_rows_u8.argtypes = [vp, vp, ci, ci, ci, ci, vp, ci, vp, ci,
+                                       ci, ci, vp]
+    lib.hipe_chain_rows_u8.restype = ci
     lib.hipe_cuda_error_string.argtypes = [ci]
     lib.hipe_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,7 +117,8 @@ def is_band_chain(names: Sequence[str]) -> bool:
 def check_planar_call(x: torch.Tensor, names: Sequence[str], h_pad: bool,
                       rows_per_block: int | None,
                       out: torch.Tensor | None) -> tuple[tuple, int, int]:
-    """Check a chain call on planar ``(N, H, W)`` uint8 for K2 or K3.
+    """Check a chain call on planar ``(N, H, W)`` uint8 (or rows ``(B, H,
+    W*C)``) for K2 or K3.
 
     Returns the chain as a tuple, the output rows and the rows per block;
     raises on anything the kernels do not take.
@@ -190,3 +199,56 @@ def filter_chain_planar_cuda(
 
 
 filter_chain_planar_cuda.launches = 0
+
+
+def filter_chain_rows_cuda(
+    rows: torch.Tensor,
+    channels: int,
+    names: Sequence[str],
+    *,
+    h_pad: bool = True,
+    rows_per_block: int | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused band/point chain over interleaved rows ``(B, H, W*C)`` uint8.
+
+    K2's rows entry, the counterpart of ``filter_chain_rows_pallas``: it
+    takes band chains only (:func:`is_band_chain`), as that entry does.
+    Every stage clamps at the edges of its own input, a whole pixel at the
+    W edges; ``h_pad``, ``rows_per_block`` and ``out`` as in
+    :func:`filter_chain_planar_cuda`.
+    """
+    names = check_stages(names)
+    if not is_band_chain(names):
+        raise ValueError(f"K2's rows entry takes band and point chains only, not "
+                         f"{names}; other chains run planar (Pipeline.apply_rows)")
+    names, ho, rpb = check_planar_call(rows, names, h_pad, rows_per_block, out)
+    if channels < 1 or rows.shape[2] % channels:
+        raise ValueError(f"rows {tuple(rows.shape)} are not (B, H, W*{channels})")
+    if rows.device.type == "cpu":
+        y = tblur.filter_chain_rows(rows, channels, names, h_pad=h_pad)
+        return y if out is None else out.copy_(y)
+    b, h, lanes = rows.shape
+    lut_bytes = tuple(tblur.LUT_STAGES[nm].tobytes() for nm in names
+                      if nm in tblur.LUT_STAGES)
+    prog, luts = _device_program(names, rows.device, lut_bytes)
+    if out is None:
+        out = torch.empty((b, ho, lanes), dtype=torch.uint8, device=rows.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(rows.device):
+        rc = lib.hipe_chain_rows_u8(
+            rows.data_ptr(), out.data_ptr(), b, h, lanes // channels, channels,
+            ctypes.addressof(prog), len(names),
+            None if luts is None else luts.data_ptr(),
+            0 if luts is None else luts.shape[0], int(h_pad), rpb,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.hipe_cuda_error_string(rc).decode()
+        raise RuntimeError(
+            f"chain_rows_u8 launch failed for {(b, h, lanes)} C={channels} {names} "
+            f"h_pad={h_pad} rows_per_block={rpb}: {msg} (cudaError {rc})")
+    filter_chain_rows_cuda.launches += 1
+    return out
+
+
+filter_chain_rows_cuda.launches = 0

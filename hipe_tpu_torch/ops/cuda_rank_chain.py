@@ -98,6 +98,17 @@ def _device_program(names: tuple, device: torch.device, lut_bytes: tuple,
     return prog, luts, tap_table
 
 
+def device_program(names: tuple, device: torch.device):
+    """:func:`encode_program`'s program, LUTs and tap table for ``names`` on
+    ``device``, cached per chain, device and LUT and kernel contents."""
+    lut_bytes = tuple(tblur.LUT_STAGES[nm].tobytes() for nm in names
+                      if nm in tblur.LUT_STAGES)
+    kernel_specs = tuple((s["scale"], s["off2"], s["flipped"]) for s in
+                         (tblur.KERNEL_STAGES[nm] for nm in names
+                          if nm in tblur.KERNEL_STAGES))
+    return _device_program(names, device, lut_bytes, kernel_specs)
+
+
 def rank_chain_planar_cuda(
     x: torch.Tensor,
     names: Sequence[str],
@@ -119,12 +130,7 @@ def rank_chain_planar_cuda(
         y = tblur.filter_chain(x, names, h_axis=-2, w_axis=-1, h_pad=h_pad)
         return y if out is None else out.copy_(y)
     n, h, w = x.shape
-    lut_bytes = tuple(tblur.LUT_STAGES[nm].tobytes() for nm in names
-                      if nm in tblur.LUT_STAGES)
-    kernel_specs = tuple((s["scale"], s["off2"], s["flipped"]) for s in
-                         (tblur.KERNEL_STAGES[nm] for nm in names
-                          if nm in tblur.KERNEL_STAGES))
-    prog, luts, taps = _device_program(names, x.device, lut_bytes, kernel_specs)
+    prog, luts, taps = device_program(names, x.device)
     if out is None:
         out = torch.empty((n, ho, w), dtype=torch.uint8, device=x.device)
     lib = _kernel_lib()

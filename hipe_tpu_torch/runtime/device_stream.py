@@ -5,7 +5,9 @@ images stays in device memory as planar ``(N*C, H, W)`` uint8; each pass
 filters the whole stream with one launch of the pipeline's kernel (K1 for a
 single gaussian, the fused chain kernel K2 for every other band and point
 chain, K3 for a chain with a rank or registered-kernel stage), and only
-checksums and the first image return to the host.
+checksums and the first image return to the host. Frames too wide for those
+kernels (``Pipeline.routes_tiled``, e.g. 4000x2250) run one launch a stage
+of the tiled kernels K4 and K5 instead.
 
 Chained passes feed every output into the next pass, alternating between
 two scratch buffers (the kernels are out-of-place: a tile's halo rows
@@ -14,7 +16,9 @@ overwritten, so every measurement starts from the same input.
 
 Throughput is timed with CUDA events around ``passes`` chained passes after
 a warm-up; the stream (983 MB at 5000 x 256x256x3) is 20x the H100's 50 MB
-L2, so every pass runs cold, as it would in service.
+L2, so every pass runs cold, as it would in service. The kernels index the
+stream with 64-bit offsets, so it may exceed 2^31 bytes (100 RGB frames of
+4000x2250 are 2.7 GB).
 """
 
 from __future__ import annotations
@@ -23,12 +27,17 @@ import numpy as np
 import torch
 
 from hipe_tpu_torch.models import pipelines as plib
+from hipe_tpu_torch.ops import cuda_tiled
 from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
 from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
 
 # The launch knob of K1, K2 and K3 swept by autotune: output rows per block,
 # plus one block per whole plane (appended from the plane height).
 ROWS_PER_BLOCK_CANDIDATES = (8, 16, 32, 64, 128)
+# The launch knob of K4 and K5 on the tiled route: output tile rows x
+# columns; a shape whose block would exceed shared memory is skipped.
+TILE_ROWS_CANDIDATES = (8, 16, 32, 64)
+TILE_COLS_CANDIDATES = (128, 256, 512)
 
 
 class DeviceStreamRunner:
@@ -70,12 +79,14 @@ class DeviceStreamRunner:
             self.stream = torch.tensor(stream, device=self.device)  # a copy
         # The two buffers chained passes alternate between.
         self._bufs = (torch.empty_like(self.stream), torch.empty_like(self.stream))
-        self.config = {"rows_per_block": None}
+        # Whether the frames take the tiled route (K4/K5), whose knob is the
+        # tile shape; the fused kernels' is rows_per_block.
+        self.tiled = self.pipeline.routes_tiled(h, w)
+        self.config = {"tile": None} if self.tiled else {"rows_per_block": None}
         self.tuning: dict | None = None
 
     def _one_pass(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-        return self.pipeline.apply_planar(
-            src, rows_per_block=self.config["rows_per_block"], out=dst)
+        return self.pipeline.apply_planar(src, out=dst, **self.config)
 
     def run_passes(self, r: int) -> torch.Tensor:
         """``r`` chained passes from the stream; returns the last output."""
@@ -98,19 +109,42 @@ class DeviceStreamRunner:
         h = self.shape[0]
         return sorted({min(k, h) for k in ROWS_PER_BLOCK_CANDIDATES} | {h})
 
-    def autotune(self, passes: int = 4, reps: int = 2) -> dict:
-        """Time each ``rows_per_block`` of the pipeline's kernel; keep the fastest.
+    def tile_candidates(self) -> list[tuple[int, int]]:
+        """K4/K5 tile shapes to sweep, every row count by every column count."""
+        return [(th, tw) for th in TILE_ROWS_CANDIDATES for tw in TILE_COLS_CANDIDATES]
 
-        Returns {label: per_pass_seconds}. A config whose launch fails is
-        recorded in ``self.tuning["skipped"]`` with its message; the sweep
-        raises if none ran. The plain version is never a candidate.
+    def _configs(self) -> list[tuple[str, dict, str | None]]:
+        """(label, config, reason to skip or None) for each autotune candidate."""
+        if not self.tiled:
+            return [(f"cuda_rpb{rpb}", {"rows_per_block": rpb}, None)
+                    for rpb in self.block_candidates()]
+        out = []
+        for tile in self.tile_candidates():
+            need = max(cuda_tiled.shared_bytes(nm, tile) for nm in self.pipeline.filters)
+            why = (None if need <= plib.SHARED_BYTES_PER_BLOCK else
+                   f"needs {need} B of shared memory a block, over "
+                   f"{plib.SHARED_BYTES_PER_BLOCK}")
+            out.append((f"cuda_tile{tile[0]}x{tile[1]}", {"tile": tile}, why))
+        return out
+
+    def autotune(self, passes: int = 4, reps: int = 2) -> dict:
+        """Time each launch config of the pipeline's kernels; keep the fastest.
+
+        The configs are ``rows_per_block`` values for K1/K2/K3 and tile
+        shapes for K4/K5 on the tiled route. Returns {label:
+        per_pass_seconds}. A config that exceeds shared memory, or whose
+        launch fails, is recorded in ``self.tuning["skipped"]`` with the
+        reason; the sweep raises if none ran. The plain version is never a
+        candidate.
         """
         timings: dict[str, float] = {}
         skipped: dict[str, str] = {}
-        best_label, best_rpb, best_t = None, None, float("inf")
-        for rpb in self.block_candidates():
-            label = f"cuda_rpb{rpb}"
-            self.config = {"rows_per_block": rpb}
+        best_label, best_config, best_t = None, None, float("inf")
+        for label, config, why in self._configs():
+            if why is not None:
+                skipped[label] = why
+                continue
+            self.config = config
             try:
                 t = self._measure_per_pass(passes=passes, reps=reps)
             except RuntimeError as e:
@@ -118,10 +152,10 @@ class DeviceStreamRunner:
                 continue
             timings[label] = t
             if t < best_t:
-                best_label, best_rpb, best_t = label, rpb, t
+                best_label, best_config, best_t = label, config, t
         if best_label is None:
             raise RuntimeError(f"no autotune config ran: {skipped}")
-        self.config = {"rows_per_block": best_rpb}
+        self.config = best_config
         self.tuning = {"chosen": best_label, "per_pass_s": timings,
                        "skipped": skipped}
         return timings

@@ -116,6 +116,7 @@ def test_importing_the_port_imports_no_jax():
     code = ("import sys, hipe_tpu_torch, hipe_tpu_torch.cli, "
             "hipe_tpu_torch.runtime.device_stream, hipe_tpu_torch.ops.cuda_blur, "
             "hipe_tpu_torch.ops.cuda_chain, hipe_tpu_torch.ops.cuda_rank_chain, "
+            "hipe_tpu_torch.ops.cuda_tiled, hipe_tpu_torch.models.pipelines, "
             "hipe_tpu_torch.ops._build; "
             "hipe_tpu_torch.DeviceStreamRunner, hipe_tpu_torch.PIPELINES, "
             "hipe_tpu_torch.filter_chain, hipe_tpu_torch.register_lut_filter, "

@@ -5,14 +5,16 @@
 
 Phases, one line each:
 
-1. Environment: torch, CUDA, nvcc, Triton and the card's name and power
-   limit. Fails unless ``torch.cuda.is_available()``; never runs on the CPU.
+1. Environment: torch, CUDA, nvcc, Triton, whether libjpeg (``jpeglib.h``
+   and the library) is on the machine, and the card's name and power limit.
+   Fails unless ``torch.cuda.is_available()``; never runs on the CPU.
 2. Builds kernels K1 (``hipe_tpu_torch/csrc/blur_planar.cu``), K2
    (``hipe_tpu_torch/csrc/chain_planar.cu``), K3
    (``hipe_tpu_torch/csrc/rank_chain_planar.cu``), K4
-   (``hipe_tpu_torch/csrc/tiled_blur_planar.cu``) and K5
-   (``hipe_tpu_torch/csrc/tiled_stage_planar.cu``) from the checkout's
-   sources, one ``nvcc`` a source, all at once.
+   (``hipe_tpu_torch/csrc/tiled_blur_planar.cu``), K5
+   (``hipe_tpu_torch/csrc/tiled_stage_planar.cu``), K6 and K7
+   (``hipe_tpu_torch/csrc/dct_blocks.cu``) from the checkout's sources, one
+   ``nvcc`` a source, all at once.
 3. Holds K1 against its plain PyTorch version on distinct random planes:
    radius 1-4, clamp and valid modes, ragged shapes, one full-stream pass,
    and every ``rows_per_block`` the autotune sweeps. Max-abs error must be 0.
@@ -62,11 +64,37 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     and the fused route (K2 or K1 at the tallest tile that fits) is timed
     for the record.
 
+15. The codec's build: the ptxas report of K6 and K7 (``dct_blocks.cu``,
+    built in phase 2 with the rest).
+16. Holds K6 (dequantize + IDCT) against its plain PyTorch version:
+    distinct random coefficients over the full int16 range (+-32767 among
+    them) and over [-2048, 2048), random 8-bit and 16-bit quant tables,
+    block grids (1,1) to (282,500) (the luma of a 4000x2250 frame) in
+    batches of 1-8, and the main path's 5000-image grids. Max-abs must be 0.
+17. Holds K7 (fDCT + quantize) against its plain version the same way, on
+    random uint8 grids with ``quality_tables(q)`` for q in {1, 50, 75, 90,
+    100} and random 8- and 16-bit tables; int16 outputs must be equal.
+18. The codec main paths over the device-resident coefficient stream: the
+    4:2:0 quality-90 coefficients of ``checker_image(256, 256, 3, seed=0)``
+    in 5000 distinct per-image buffers (983 MB of int16). Encode (pixels
+    ``(5000, 256, 768)`` -> coefficients), decode (-> rows), decode + blur3
+    (``Pipeline.apply_rows``) and the transcode (decode -> blur3 -> encode
+    through ``ServingPipeline.transcode_fn``, passes chained): per-pass ms
+    (3 sessions), the result against the plain path on the card (after 3
+    chained passes for the transcode), the first image against the port's
+    CPU path, the device idle share; only K6, K7 and K1's rows entry may
+    launch (a transcode pass: 3, 1, 3). K6's, K7's and K1's own times and
+    those of the torch work between them split a transcode pass.
+The byte-level serving round trip is not driven here: the card's machine
+has no libjpeg (no ``jpeglib.h``, no ``libjpeg.so``), which the host
+entropy layer needs; phase 1 prints what it finds.
+
 Then one JSON line of per-kernel results (each kernel's launches on its
 main path, its worst error against the plain version, its time and the
 plain version's a pass, and its bound: the larger of the bytes it must move
 over the card's 3.35 TB/s and the operations it must do on its uint8 inputs
-over the card's int8 peak), the card's name and power limit, and as the last line
+over the card's int8 peak, or for K6 and K7 their int32 operations over the
+CUDA cores' int32 rate), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero.
 """
@@ -103,6 +131,21 @@ ODD_TILE = (3, 5)  # besides the autotune's tile shapes
 # operations on 8-bit integers, the type of every kernel's inputs.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# int32 operations on the CUDA cores: 64 lanes an SM, 132 SMs, 1.98 GHz,
+# and at most two operations an instruction (a multiply-add, a three-input
+# add, a shift-and-add), as the data sheet counts a multiply-add as two.
+# K6's and K7's products exceed 24 bits, so no tensor-core peak applies.
+INT32_OPS_PER_S = 2 * 64 * 132 * 1.98e9
+# int32 operations a sample, counted by hand from the code (a multiply, an
+# add, a shift, a compare, a select, a divide: one each; DESCALE two): an
+# 8-point IDCT pass 62 for 8 samples, an 8-point fDCT pass 58 (row) and 60
+# (column). K6: dequantize 1 + two passes 15.5 + the range limit 9 (and,
+# three compares, three selects, two adds). K7: level shift 1 + two passes
+# 14.75 + the quantizer 6 (abs, add, divide, compare, negate, select).
+K6_OPS_PER_SAMPLE = 1 + 2 * 62 / 8 + 9
+K7_OPS_PER_SAMPLE = 1 + (58 + 60) / 8 + 6
+DCT_GRIDS = ((1, 1), (5, 7), (4, 16), (32, 32), (16, 16), (282, 500))  # (Hb, Wb)
+QUALITIES = (1, 50, 75, 90, 100)
 LUT_NAME = "dim"  # brightness_lut(0.7), registered in phase 4
 RANK_NAME = "q"  # PIL RankFilter(5, 6), registered in phase 5
 KERNEL_NAME = "tilt"  # an asymmetric 5x5 kernel, registered in phase 5
@@ -146,6 +189,21 @@ def _run(cmd: list[str]) -> str:
     return next((ln for ln in lines if "release" in ln), lines[-1])
 
 
+def libjpeg_found() -> str:
+    """Whether the compiler finds ``jpeglib.h`` and the linker ``libjpeg``,
+    which the host entropy layer of the JPEG codec needs."""
+    import ctypes.util
+
+    try:
+        proc = subprocess.run(["g++", "-E", "-x", "c++", "-", "-o", os.devnull],
+                              input="#include <cstdio>\n#include <jpeglib.h>\n",
+                              capture_output=True, text=True, timeout=60)
+        header = "found" if proc.returncode == 0 else "absent"
+    except (OSError, subprocess.TimeoutExpired) as e:
+        header = f"unknown ({type(e).__name__})"
+    return f"jpeglib.h {header}, libjpeg {ctypes.util.find_library('jpeg') or 'absent'}"
+
+
 def phase_env() -> str:
     from hipe_tpu_torch.cli import gpu_name_and_power_limit
     from hipe_tpu_torch.ops import _build
@@ -162,7 +220,8 @@ def phase_env() -> str:
     except RuntimeError as e:
         nvcc = str(e)
     print(f"[1 env] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"nvcc '{nvcc}' triton {triton_version} card '{card}'", flush=True)
+          f"nvcc '{nvcc}' triton {triton_version} {libjpeg_found()} card '{card}'",
+          flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: chip_smoke.py "
                          "runs only on an NVIDIA GPU")
@@ -172,11 +231,12 @@ def phase_env() -> str:
 def phase_build(card: str) -> None:
     import re
 
-    from hipe_tpu_torch.ops import _build, cuda_blur, cuda_chain, cuda_rank_chain, cuda_tiled
+    from hipe_tpu_torch.ops import (_build, cuda_blur, cuda_chain, cuda_dct, cuda_rank_chain,
+                                    cuda_tiled)
 
     t0 = time.perf_counter()
     lib = _build.build()
-    for mod in (cuda_blur, cuda_chain, cuda_rank_chain, cuda_tiled):
+    for mod in (cuda_blur, cuda_chain, cuda_rank_chain, cuda_tiled, cuda_dct):
         mod._kernel_lib()
     secs = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
@@ -189,8 +249,8 @@ def phase_build(card: str) -> None:
 
 
 def _chunk(x: torch.Tensor) -> int:
-    """Planes (or images) a call of at most PLAIN_CHUNK_PIXELS."""
-    return max(1, PLAIN_CHUNK_PIXELS // (x.shape[1] * x.shape[2]))
+    """Planes (or images) a call of at most PLAIN_CHUNK_PIXELS elements."""
+    return max(1, PLAIN_CHUNK_PIXELS // max(1, x[0].numel()))
 
 
 def plain_chunked(x: torch.Tensor, names: tuple, h_pad: bool = True) -> torch.Tensor:
@@ -252,6 +312,7 @@ def reset_counts() -> dict:
     """Every kernel wrapper's launch counter, set to 0: {label: wrapper}."""
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
     from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda, filter_chain_rows_cuda
+    from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, fdct_quantize_cuda
     from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
     from hipe_tpu_torch.ops.cuda_tiled import (filter_stage_planar_tiled_cuda,
                                                gaussian_blur_planar_tiled_cuda)
@@ -259,7 +320,8 @@ def reset_counts() -> dict:
     wrappers = {"K1": gaussian_blur_planar_cuda, "K1 rows": gaussian_blur_rows_cuda,
                 "K2": filter_chain_planar_cuda, "K2 rows": filter_chain_rows_cuda,
                 "K3": rank_chain_planar_cuda, "K4": gaussian_blur_planar_tiled_cuda,
-                "K5": filter_stage_planar_tiled_cuda}
+                "K5": filter_stage_planar_tiled_cuda, "K6": dequant_idct_cuda,
+                "K7": fdct_quantize_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -380,6 +442,13 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_pass_ms(fn) -> tuple[float, list[float]]:
+    """(median, sorted sessions): SESSIONS sessions, each the mean of 3
+    CUDA-event timings of ``fn()`` (which runs PASSES passes), a pass."""
+    sessions = sorted(cuda_ms(fn, reps=3) / PASSES for _ in range(SESSIONS))
+    return sessions[len(sessions) // 2], sessions
 
 
 def device_busy(fn) -> tuple[float, float]:
@@ -589,8 +658,7 @@ def phase_rows_main_path(card: str) -> dict:
             if pipe.rows_entry_fits(SIDE, SIDE, CHANNELS, rows_per_block=rpb)]
     tune = {rpb: cuda_ms(lambda: passes(rpb, PASSES)) / PASSES for rpb in fits}
     best = min(tune, key=tune.get)
-    sessions = sorted(cuda_ms(lambda: passes(best, PASSES), reps=3) / PASSES
-                      for _ in range(SESSIONS))
+    ms, sessions = median_pass_ms(lambda: passes(best, PASSES))
     first = passes(best, 1)[0].cpu().numpy().reshape(SIDE, SIDE, CHANNELS)
     err = int(abs(first.astype(int) - gaussian_blur_int_oracle(image).astype(int)).max())
     got = passes(best, 3)
@@ -604,7 +672,6 @@ def phase_rows_main_path(card: str) -> dict:
                              f"passes {chain_err}")
     del want, got
     plain_ms = cuda_ms(lambda: plain_rows_chunked(rows, CHANNELS, pipe.filters))
-    ms = sessions[len(sessions) // 2]
     print(f"[13 rows main path] blur3 apply_rows {NUM_IMAGES}x{SIDE}x{lane} rows: sweep "
           f"{ {k: round(v, 4) for k, v in tune.items()} } ms/pass, chose rows_per_block "
           f"{best}; max_abs_err {err} (oracle), {chain_err} (3 chained passes vs plain); "
@@ -701,6 +768,264 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
             "chain_err": chain_err, "own": own, "fused_ms": fused_ms}
 
 
+def phase_dct_build(card: str) -> None:
+    """The ptxas report of K6 and K7 (built in phase 2 with the rest)."""
+    import re
+
+    from hipe_tpu_torch.ops import _build
+
+    log = (_build.build().parent / "build.log").read_text()
+    lines = []
+    for entry in log.split("Compiling entry function")[1:]:
+        name = re.search(r"(dequant_idct|fdct_quantize)_kernel", entry.split("\n")[0])
+        if name:
+            regs = re.search(r"Used (\d+) registers", entry)
+            smem = re.search(r"(\d+) bytes smem", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            lines.append(f"{name.group(0)} {regs.group(1) if regs else '?'} registers, "
+                         f"{smem.group(1) if smem else '?'} B shared, "
+                         f"{spill.group(1) if spill else '?'} B spill stores")
+    if len(lines) != 2:
+        raise AssertionError(f"build.log has no ptxas report of K6 and K7: {lines}")
+    print(f"[15 codec build] csrc/dct_blocks.cu: {'; '.join(lines)} [{card}]", flush=True)
+
+
+def chunked(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """``fn`` over batch chunks of x (the plain versions' int32 temporaries)."""
+    k = _chunk(x)
+    return torch.cat([fn(x[i:i + k], *args) for i in range(0, x.shape[0], k)])
+
+
+def random_tables(gen: torch.Generator) -> dict:
+    """A random 8-bit and a random 16-bit quant table (65535 among its entries)."""
+    q8 = torch.randint(1, 256, (64,), generator=gen, device=gen.device).cpu()
+    q16 = torch.randint(1, 65536, (64,), generator=gen, device=gen.device).cpu()
+    q16[0] = 65535
+    return {"random 8-bit": q8, "random 16-bit": q16}
+
+
+def phase_dct_vs_plain(card: str, phase: str, label: str, fn, plain, make_input, tables: dict,
+                       main_shapes: tuple, main_table, seed: int) -> int:
+    """Hold a DCT kernel (``fn(x, q)``, its launch count growing by one a
+    launch) against its plain version on DCT_GRIDS in batches of 1-8, for
+    every input kind ``make_input(shape, kind, gen)`` returns and every
+    table, and on the main path's shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables = {**tables, **random_tables(gen)}
+    cases = []
+    for gi, (hb, wb) in enumerate(DCT_GRIDS):
+        for ti, (tname, q) in enumerate(tables.items()):
+            for kind in make_input.kinds:
+                cases.append(((1 + (gi + ti) % 8, hb, wb), kind, tname, q))
+    cases += [((NUM_IMAGES, hb, wb), make_input.kinds[-1], "main path", main_table)
+              for hb, wb in main_shapes]
+    before = fn.launches
+    for shape, kind, tname, q in cases:
+        x = make_input(shape, kind, gen)
+        check_against(label, lambda: fn(x, q), chunked(plain, x, q),
+                      f"{shape} blocks, {kind}, {tname} table")
+        del x
+    grew = fn.launches - before
+    if grew != len(cases):
+        raise AssertionError(f"{label} launch counter grew by {grew}, expected {len(cases)}")
+    print(f"[{phase} {label} vs plain] {len(cases)} launches over block grids {DCT_GRIDS} "
+          f"(batches 1-8) and the main path's {main_shapes} x {NUM_IMAGES}, inputs "
+          f"{make_input.kinds}, tables {list(tables)}: max_abs_err 0 [{card}]", flush=True)
+    return 0
+
+
+def random_coefs(shape: tuple, kind: str, gen: torch.Generator) -> torch.Tensor:
+    """(B, Hb, Wb, 64) int16: the full int16 range with +-32767 and -32768
+    among them, or [-2048, 2048)."""
+    b, hb, wb = shape
+    lo, hi = (-32768, 32768) if kind == "full int16" else (-2048, 2048)
+    x = torch.randint(lo, hi, (b, hb, wb, 64), dtype=torch.int32, device=gen.device,
+                      generator=gen).to(torch.int16)
+    if kind == "full int16":
+        x.view(-1)[:4] = torch.tensor([32767, -32767, -32768, 32767], dtype=torch.int16)
+    return x
+
+
+random_coefs.kinds = ("full int16", "[-2048, 2048)")
+
+
+def random_grid(shape: tuple, kind: str, gen: torch.Generator) -> torch.Tensor:
+    b, hb, wb = shape
+    return torch.randint(0, 256, (b, hb * 8, wb * 8), dtype=torch.uint8, device=gen.device,
+                         generator=gen)
+
+
+random_grid.kinds = ("uint8",)
+
+
+def phase_k6_vs_plain(card: str) -> int:
+    from hipe_tpu_torch.io_.jpeg import quality_tables
+    from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda
+    from hipe_tpu_torch.ops.jpeg_decode import idct8x8_islow
+
+    return phase_dct_vs_plain(card, "16", "K6", dequant_idct_cuda, idct8x8_islow, random_coefs,
+                              {}, ((32, 32), (16, 16)), quality_tables(90)[0], seed=7)
+
+
+def phase_k7_vs_plain(card: str) -> int:
+    from hipe_tpu_torch.io_.jpeg import quality_tables
+    from hipe_tpu_torch.ops.cuda_dct import fdct_quantize_cuda
+    from hipe_tpu_torch.ops.jpeg_encode import fdct_quantize_plain
+
+    tables = {f"{part} q{q}": t for q in QUALITIES
+              for part, t in zip(("luma", "chroma"), quality_tables(q))}
+    return phase_dct_vs_plain(card, "17", "K7", fdct_quantize_cuda, fdct_quantize_plain,
+                              random_grid, tables, ((32, 32), (16, 16)),
+                              quality_tables(90)[1], seed=8)
+
+
+def phase_codec_main_paths(card: str) -> dict:
+    """The codec's four main paths over the resident 5000-image 4:2:0 stream."""
+    from hipe_tpu_torch.io_.jpeg import quality_tables
+    from hipe_tpu_torch.ops import cuda_dct
+    from hipe_tpu_torch.ops import jpeg_decode as jd
+    from hipe_tpu_torch.ops import jpeg_encode as je
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
+    from hipe_tpu_torch.runtime.serve import ServingPipeline
+    from hipe_tpu_torch.utils.images import checker_image
+
+    dev = torch.device("cuda")
+    image = checker_image(SIDE, SIDE, CHANNELS, seed=0)
+    geo = je.encode_geometry(SIDE, SIDE, CHANNELS, "420")
+    luma, chroma = quality_tables(90)
+    qt = [luma, chroma, chroma]
+    qkey = tuple(tuple(int(v) for v in q) for q in qt)
+    one = torch.from_numpy(image).to(dev)[None]
+    # The stream: the image's coefficients in 5000 distinct per-image buffers.
+    coefs = tuple(c.expand(NUM_IMAGES, *c.shape[1:]).contiguous()
+                  for c in je.encode_planes(geo, one, qt))
+    rows = one.reshape(1, SIDE, SIDE * CHANNELS).expand(NUM_IMAGES, -1, -1).contiguous()
+    serve = ServingPipeline("blur3", device=dev, decode_on_device=True, encode_on_device=True)
+    encode = serve.encode_fn(SIDE, SIDE, CHANNELS, with_filter=False)
+    decode_filter = serve.decode_filter_fn(geo, qkey)
+    transcode = serve.transcode_fn(geo, qkey)
+
+    def decode(*c):
+        return jd.decode_planes(geo, list(c), qt, layout="rows")
+
+    def chained(n: int):
+        x = coefs
+        for _ in range(n):
+            x = transcode(*x)
+        return x
+
+    # The plain path on the card: the same torch work between the kernels,
+    # the plain DCTs and the plain rows blur.
+    def plain_decode(*c):
+        return jd._decode_rgb_rows_from_planes(
+            geo, [chunked(jd.idct8x8_islow, x, q) for x, q in zip(c, qt)])
+
+    def plain_encode(r):
+        grids = je._sample_grids(geo, r.reshape(r.shape[0], SIDE, SIDE, CHANNELS))
+        return [chunked(je.fdct_quantize_plain, g, q) for g, q in zip(grids, qt)]
+
+    def plain_transcode(*c):
+        return plain_encode(plain_rows_chunked(plain_decode(*c), CHANNELS, ("gaussian3",)))
+
+    def same(got, want, what: str) -> int:
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, (list, tuple)) else [want]
+        err = max(max_abs_err(g.reshape(want_.shape), want_) for g, want_ in zip(got, want))
+        if err:
+            raise AssertionError(f"codec {what} differs from the plain path: max-abs {err}")
+        return err
+
+    paths = {
+        "encode": (lambda: encode(rows), {"K7": 3},
+                   lambda: plain_encode(rows)),
+        "decode": (lambda: decode(*coefs), {"K6": 3}, lambda: plain_decode(*coefs)),
+        "decode + blur3": (lambda: decode_filter(*coefs), {"K6": 3, "K1 rows": 1},
+                           lambda: plain_rows_chunked(plain_decode(*coefs), CHANNELS,
+                                                      ("gaussian3",))),
+        "transcode": (None, {"K6": 3, "K1 rows": 1, "K7": 3}, None),
+    }
+    results = {}
+    timed = SESSIONS * 3 * PASSES
+    for name, (one_pass, per_pass, plain) in paths.items():
+        wrappers = reset_counts()
+        if name == "transcode":
+            ms, sessions = median_pass_ms(lambda: chained(PASSES))
+            busy = device_busy(lambda: chained(PASSES))
+            got = chained(3)
+            counts = check_counts(wrappers, {k: v * timed for k, v in per_pass.items()}, name)
+            want = coefs
+            for _ in range(3):
+                want = plain_transcode(*want)
+            plain_ms = cuda_ms(lambda: plain_transcode(*coefs))
+            err = same(got, want, "transcode after 3 chained passes")
+        else:
+            ms, sessions = median_pass_ms(lambda: [one_pass() for _ in range(PASSES)])
+            busy = device_busy(lambda: [one_pass() for _ in range(PASSES)])
+            got = one_pass()
+            counts = check_counts(wrappers, {k: v * timed for k, v in per_pass.items()}, name)
+            err = same(got, plain(), name)
+            plain_ms = cuda_ms(plain)
+        results[name] = {"ms": ms, "sessions": sessions, "plain_ms": plain_ms, "err": err,
+                         "idle": 1 - busy[1] / busy[0], "counts": counts}
+        del got
+        print(f"[18 codec main path] {name}, {NUM_IMAGES} images of {SIDE}x{SIDE}x{CHANNELS} "
+              f"4:2:0 q90: sessions {[round(t, 4) for t in sessions]} ms/pass, median "
+              f"{ms:.4f} ms, {NUM_IMAGES / ms * 1e3:.1f} img/s; max_abs_err {err} against "
+              f"the plain path ({'after 3 chained passes, ' if name == 'transcode' else ''}"
+              f"plain {plain_ms:.4f} ms/pass); device idle over {PASSES} passes "
+              f"{results[name]['idle']:.2%} (kernels {busy[1]:.3f} of {busy[0]:.3f} ms); "
+              f"launches { {k: n for k, n in counts.items() if n} } [{card}]", flush=True)
+    # The first image, decoded on the card, against the port's CPU path.
+    cpu_first = jd.decode_planes(geo, [c[:1].cpu() for c in coefs], qt, layout="rows")
+    first_err = max_abs_err(decode(*(c[:1] for c in coefs)).cpu(), cpu_first)
+    cpu_coefs = je.encode_planes(geo, one.cpu(), qt)
+    stream_err = max(max_abs_err(c[:1].cpu(), w) for c, w in zip(coefs, cpu_coefs))
+    if first_err or stream_err:
+        raise AssertionError(f"card against CPU: decode {first_err}, encode {stream_err}")
+    # Where a transcode pass goes: each kernel's own launches and the torch
+    # work between them, on this stream.
+    grids = [cuda_dct.dequant_idct_cuda(c, q) for c, q in zip(coefs, qt)]
+    dec_rows = jd._decode_rgb_rows_from_planes(geo, grids)
+    blurred = gaussian_blur_rows_cuda(dec_rows, CHANNELS, 1)
+    enc_grids = je._sample_grids(geo, blurred.reshape(NUM_IMAGES, SIDE, SIDE, CHANNELS))
+    outs = [torch.empty_like(c) for c in coefs]
+    split = {
+        "K6": cuda_ms(lambda: [cuda_dct.dequant_idct_cuda(c, q, out=g)
+                               for c, q, g in zip(coefs, qt, grids)], reps=PASSES),
+        "decode torch work": cuda_ms(lambda: jd._decode_rgb_rows_from_planes(
+            geo, grids, out=dec_rows), reps=PASSES),
+        "K1 rows": cuda_ms(lambda: gaussian_blur_rows_cuda(dec_rows, CHANNELS, 1, out=blurred),
+                           reps=PASSES),
+        "encode torch work": cuda_ms(lambda: je._sample_grids(
+            geo, blurred.reshape(NUM_IMAGES, SIDE, SIDE, CHANNELS)), reps=PASSES),
+        "K7": cuda_ms(lambda: [cuda_dct.fdct_quantize_cuda(g, q, out=o)
+                               for g, q, o in zip(enc_grids, qt, outs)], reps=PASSES),
+    }
+    plain_k6 = cuda_ms(lambda: [chunked(jd.idct8x8_islow, c, q) for c, q in zip(coefs, qt)])
+    plain_k7 = cuda_ms(lambda: [chunked(je.fdct_quantize_plain, g, q)
+                                for g, q in zip(enc_grids, qt)])
+    samples = sum(g.numel() for g in grids)
+    coef_bytes = sum(c.numel() * 2 for c in coefs)
+    bounds = {}
+    for label, ops in (("K6", K6_OPS_PER_SAMPLE), ("K7", K7_OPS_PER_SAMPLE)):
+        t_bytes = (coef_bytes + samples) / HBM_BYTES_PER_S * 1e3
+        t_ops = ops * samples / INT32_OPS_PER_S * 1e3
+        bounds[label] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"[18 codec main path] the transcode pass split: "
+          f"{ {k: round(v, 4) for k, v in split.items()} } ms (sum "
+          f"{sum(split.values()):.4f}, pass {results['transcode']['ms']:.4f}); plain K6 "
+          f"{plain_k6:.4f} ms, plain K7 {plain_k7:.4f} ms; bounds K6 {bounds['K6'][0]:.4f} ms "
+          f"({bounds['K6'][1]}), K7 {bounds['K7'][0]:.4f} ms ({bounds['K7'][1]}) over "
+          f"{samples} samples and {coef_bytes} coefficient bytes; first image and stream "
+          f"against the CPU path: max_abs_err 0 [{card}]", flush=True)
+    serve.close()
+    del coefs, rows, grids, dec_rows, blurred, enc_grids, outs
+    torch.cuda.empty_cache()
+    return {"paths": results, "split": split, "plain_k6": plain_k6, "plain_k7": plain_k7,
+            "bounds": bounds}
+
+
 def main() -> int:
     from hipe_tpu_torch.ops.blur import FILTER_RADIUS, GAUSSIANS
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
@@ -733,9 +1058,16 @@ def main() -> int:
     large_chain = phase_large_frames(card, "chain")
     large_blur3 = phase_large_frames(card, "blur3")
     k4, k5 = large_blur3["own"]["K4"], large_chain["own"]["K5"]
+    phase_dct_build(card)
+    k6_err = phase_k6_vs_plain(card)
+    k7_err = phase_k7_vs_plain(card)
+    codec = phase_codec_main_paths(card)
+    transcode = codec["paths"]["transcode"]
+    codec_err = max(p["err"] for p in codec["paths"].values())
     # No PyTorch call computes these functions: none takes uint8 planes with
     # clamp-to-edge borders and truncating integer arithmetic (conv2d takes
-    # float with zero padding; nothing computes a rank window).
+    # float with zero padding; nothing computes a rank window), and none
+    # computes libjpeg's integer islow DCTs with their rounding and wrap.
     no_library = None
     print(json.dumps({"kernels": [{
         "name": "blur_planar_u8",
@@ -745,14 +1077,16 @@ def main() -> int:
         "also_replaces": ["hipe_tpu/ops/pallas_blur.py:56",
                           "hipe_tpu/ops/pallas_blur.py:923 (single-gaussian chains)",
                           "hipe_tpu/ops/pallas_blur.py:566 (rows entry)"],
-        "launches": blur3["launches"] + rows["launches"],
-        "max_abs_err": max(k1_err, blur3["chain_err"], k1_rows_err, rows["chain_err"]),
+        "launches": blur3["launches"] + rows["launches"] + transcode["counts"]["K1 rows"],
+        "max_abs_err": max(k1_err, blur3["chain_err"], k1_rows_err, rows["chain_err"],
+                           codec_err),
         "ms": blur3["ms"],
         "plain_ms": blur3["plain_ms"],
         "bound_ms": blur3["bound_ms"],
         "bound_by": blur3["bound_by"],
         "library_ms": no_library,
         "rows_launches": rows["launches"],
+        "transcode_launches": transcode["counts"]["K1 rows"],
         "rows_ms": rows["ms"],
         "rows_plain_ms": rows["plain_ms"],
     }, {
@@ -803,6 +1137,32 @@ def main() -> int:
         "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound"][0],
         "bound_by": k5["bound"][1],
+        "library_ms": no_library,
+    }, {
+        "name": "dequant_idct_s16",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/dct_blocks.cu",
+        "replaces": "hipe_tpu/ops/pallas_dct.py:72",
+        "launches": transcode["counts"]["K6"],
+        "launches_per_pass": 3,
+        "max_abs_err": max(k6_err, codec_err),
+        "ms": codec["split"]["K6"],
+        "plain_ms": codec["plain_k6"],
+        "bound_ms": codec["bounds"]["K6"][0],
+        "bound_by": codec["bounds"]["K6"][1],
+        "library_ms": no_library,
+    }, {
+        "name": "fdct_quantize_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/dct_blocks.cu",
+        "replaces": "hipe_tpu/ops/pallas_dct.py:155",
+        "launches": transcode["counts"]["K7"],
+        "launches_per_pass": 3,
+        "max_abs_err": max(k7_err, codec_err),
+        "ms": codec["split"]["K7"],
+        "plain_ms": codec["plain_k7"],
+        "bound_ms": codec["bounds"]["K7"][0],
+        "bound_by": codec["bounds"]["K7"][1],
         "library_ms": no_library,
     }]}))
     print(f"card: {card}")

@@ -19,10 +19,19 @@ easy to find:
 - :mod:`hipe_tpu_torch.ops.cuda_tiled` — the hand-written 2-D-tiled kernels
   K4 (``csrc/tiled_blur_planar.cu``) and K5 (``csrc/tiled_stage_planar.cu``)
   that replace the Pallas halo-tiled kernels for large frames;
+- :mod:`hipe_tpu_torch.ops.cuda_dct` — the hand-written DCT kernels K6
+  (dequantize + IDCT) and K7 (fDCT + quantize) of the device JPEG codec
+  (``csrc/dct_blocks.cu``), which replace the Pallas DCT kernels;
+- :mod:`hipe_tpu_torch.ops.jpeg_decode`, :mod:`hipe_tpu_torch.ops.jpeg_encode`
+  — the device codec (``decode_coefficients``, ``decode_planes``,
+  ``encode_planes``, ``encode_bytes_device``); :mod:`hipe_tpu_torch.io_.jpeg`
+  — its host entropy layer, the libjpeg codec (``csrc/jpeg_codec.cpp``);
 - :mod:`hipe_tpu_torch.models.pipelines` — ``Pipeline``/``PIPELINES``
   (``apply_planar``, ``apply_rows``, ``apply_nhwc``);
 - :mod:`hipe_tpu_torch.runtime.device_stream` — ``DeviceStreamRunner``,
-  the device-resident stream (5000 images of 256x256, or large frames).
+  the device-resident stream (5000 images of 256x256, or large frames);
+- :mod:`hipe_tpu_torch.runtime.serve` — ``ServingPipeline``, JPEG decode ->
+  filter -> encode in four placements of the codec.
 
 The package imports ``torch`` and never ``jax``. Importing it loads nothing
 heavy: the exports below resolve on first use.
@@ -36,6 +45,18 @@ def __getattr__(name):
         from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 
         return DeviceStreamRunner
+    if name == "ServingPipeline":
+        from hipe_tpu_torch.runtime.serve import ServingPipeline
+
+        return ServingPipeline
+    if name == "decode_coefficients":
+        from hipe_tpu_torch.ops.jpeg_decode import decode_coefficients
+
+        return decode_coefficients
+    if name == "encode_bytes_device":
+        from hipe_tpu_torch.ops.jpeg_encode import encode_bytes_device
+
+        return encode_bytes_device
     if name in ("Pipeline", "PIPELINES"):
         from hipe_tpu_torch.models import pipelines
 

@@ -1,9 +1,9 @@
 """Command line of the PyTorch/CUDA port (counterpart of ``hipe_tpu.cli``).
 
-This slice carries the ``stream`` subcommand, the device-resident stream on
-an NVIDIA GPU. It takes a pipeline name, a bare stage name or a comma-joined
-chain of stages; ``--kernel``, ``--lut`` and ``--rank`` register stages
-with ``hipe_tpu``'s grammar::
+``stream`` runs the device-resident stream on an NVIDIA GPU. It takes a
+pipeline name, a bare stage name or a comma-joined chain of stages;
+``--kernel``, ``--lut`` and ``--rank`` register stages with ``hipe_tpu``'s
+grammar::
 
     python -m hipe_tpu_torch.cli stream blur3 --num-images 5000 --json
     python -m hipe_tpu_torch.cli stream chain --num-images 5000 --json
@@ -13,9 +13,21 @@ with ``hipe_tpu``'s grammar::
     python -m hipe_tpu_torch.cli stream q,edge --rank q=5:6
     python -m hipe_tpu_torch.cli stream soft,sharpen --kernel soft=1,2,1,2,4,2,1,2,1:16
 
-The stream's image is ``checker_image(256, 256, 3, seed=0)``; the port has
-no JPEG codec yet. Without a CUDA device the command fails: it never runs
-on the CPU.
+The stream's image is ``checker_image(256, 256, 3, seed=0)``. Without a
+CUDA device the command fails: it never runs on the CPU.
+
+``serve`` runs JPEG decode -> filter -> encode over a stream of JPEGs, with
+the same pipeline grammar, in one of four placements (host codec, device
+decode, device encode, or both: the full transcode on the card)::
+
+    python -m hipe_tpu_torch.cli serve blur3 --decode-on-device \
+        --encode-on-device --num-images 500 --json
+
+Its input is ``checker_image(256, 256, 3, seed=0)`` (or ``--image PATH``)
+encoded by the port's host codec at ``--quality``. The host codec is
+libjpeg, built at first use; where g++ or libjpeg is missing, ``serve``
+fails and says so. ``--device cpu`` runs it on the CPU, with the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -40,34 +52,41 @@ def gpu_name_and_power_limit() -> str:
     return proc.stdout.strip() or proc.stderr.strip()
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="hipe_tpu_torch", description=__doc__,
-                                formatter_class=argparse.RawDescriptionHelpFormatter)
-    sub = p.add_subparsers(dest="command", required=True)
-    st = sub.add_parser("stream", help="device-resident stream on the GPU")
-    st.add_argument("pipeline_name", nargs="?", default="blur3",
-                    help="a pipeline, a stage name, or a comma-joined chain "
-                         "of stages")
-    st.add_argument(
+def _add_stage_flags(p: argparse.ArgumentParser) -> None:
+    """The pipeline argument and the stage-registering flags."""
+    p.add_argument("pipeline_name", nargs="?", default="blur3",
+                   help="a pipeline, a stage name, or a comma-joined chain "
+                        "of stages")
+    p.add_argument(
         "--kernel", action="append", metavar="NAME=TAPS[:SCALE[:OFFSET]]",
         help="register a custom convolution kernel as a chainable filter "
              "stage (taps comma-separated in PIL ImageFilter.Kernel order, "
              "odd square 3x3-9x9; scale defaults to sum(taps); offset in "
              "halves). Repeatable. Example: "
              "--kernel soft=1,2,1,2,4,2,1,2,1:16 soft,sharpen")
-    st.add_argument(
+    p.add_argument(
         "--lut", action="append", metavar="NAME=SPEC",
         help="register a 256-entry LUT as a chainable radius-0 point stage. "
              "SPEC is brightness:F (PIL ImageEnhance.Brightness, bit-exact), "
              "gamma:G, solarize:T (PIL threshold), or 256 comma-separated "
              "uint8 values. Repeatable. Example: --lut dim=brightness:0.7 "
              "dim,gaussian3")
-    st.add_argument(
+    p.add_argument(
         "--rank", action="append", metavar="NAME=SIZE:RANK",
         help="register PIL RankFilter(SIZE, RANK) as a chainable stage "
              "(SIZE odd 3..9, RANK in [0, SIZE^2); bit-exact incl. borders; "
              "median5/erode5/dilate5/median7/median9 are pre-registered). "
              "Repeatable. Example: --rank q=5:6 q,edge")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from hipe_tpu_torch.ops.jpeg_encode import DEVICE_SUBSAMPLINGS
+
+    p = argparse.ArgumentParser(prog="hipe_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="command", required=True)
+    st = sub.add_parser("stream", help="device-resident stream on the GPU")
+    _add_stage_flags(st)
     st.add_argument("--num-images", type=int, default=5000)
     st.add_argument("--passes", type=int, default=10)
     st.add_argument("--no-autotune", action="store_true",
@@ -76,6 +95,39 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print one JSON result line")
     st.add_argument("--device", default="cuda",
                     help="CUDA device to run on (default: cuda)")
+    sv = sub.add_parser("serve", help="JPEG decode -> filter -> encode over a "
+                                      "stream of JPEGs")
+    _add_stage_flags(sv)
+    sv.add_argument("--num-images", type=int, default=500)
+    sv.add_argument("--batch-size", type=int, default=100)
+    sv.add_argument("--image", default=None, metavar="PATH",
+                    help=f"input JPEG (default: {IMAGE_NAME} encoded at --quality)")
+    sv.add_argument("--quality", type=int, default=90,
+                    help="JPEG quality of the input stream and of the outputs")
+    sv.add_argument("--decode-on-device", action="store_true",
+                    help="the host decodes the entropy layer only; dequantize, "
+                         "IDCT (K6), upsampling and colour run on the card")
+    sv.add_argument("--encode-on-device", action="store_true",
+                    help="the host encodes the entropy layer only; colour, "
+                         "downsampling, fDCT and quantize (K7) run on the card "
+                         "(byte-identical files)")
+    sv.add_argument("--encode-subsampling", default="420", choices=DEVICE_SUBSAMPLINGS,
+                    help="chroma subsampling of the emitted JPEGs")
+    sv.add_argument("--encode-progressive", action="store_true",
+                    help="progressive output streams (identical pixels)")
+    sv.add_argument("--encode-arithmetic", action="store_true",
+                    help="arithmetic-coded output streams (identical pixels)")
+    sv.add_argument("--encode-optimize", action="store_true",
+                    help="per-image optimal Huffman tables (identical pixels)")
+    sv.add_argument("--encode-restart-interval", type=int, default=0, metavar="MCUS",
+                    help="insert RSTn markers every MCUS MCUs (0 = none)")
+    sv.add_argument("--no-encode", action="store_true",
+                    help="skip the output JPEG encode")
+    sv.add_argument("--json", action="store_true",
+                    help="print one JSON result line")
+    sv.add_argument("--device", default="cuda",
+                    help="device to run on (default: cuda; cpu runs the plain "
+                         "versions)")
     return p
 
 
@@ -147,25 +199,34 @@ def _register_cli_ranks(specs) -> str | None:
     return None
 
 
-def _main_stream(args) -> int:
-    import torch
-
+def _pipeline_of(args):
+    """Register the --kernel/--lut/--rank stages and resolve the pipeline;
+    prints one error line and returns None on a bad name or spec."""
     from hipe_tpu_torch.models import pipelines as plib
-    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
-    from hipe_tpu_torch.utils.images import checker_image
 
     err = (_register_cli_kernels(args.kernel) or _register_cli_luts(args.lut)
            or _register_cli_ranks(args.rank))
     if err:
         print(err, file=sys.stderr)
-        return 1
+        return None
     spec = args.pipeline_name
     try:
-        pipeline = plib.get(tuple(spec.split(",")) if "," in spec else spec)
+        return plib.get(tuple(spec.split(",")) if "," in spec else spec)
     except (KeyError, ValueError) as e:
         msg = e.args[0] if e.args else str(e)
         print(f"Error: {msg} (a pipeline, a stage name, or a comma-joined "
               "chain of stages)", file=sys.stderr)
+        return None
+
+
+def _main_stream(args) -> int:
+    import torch
+
+    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+    from hipe_tpu_torch.utils.images import checker_image
+
+    pipeline = _pipeline_of(args)
+    if pipeline is None:
         return 1
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
@@ -215,10 +276,98 @@ def _main_stream(args) -> int:
     return 0 if err == 0 else 1
 
 
+def _main_serve(args) -> int:
+    """JPEG decode -> filter -> encode over a stream of JPEGs."""
+    import torch
+
+    from hipe_tpu_torch.io_ import jpeg as jio
+    from hipe_tpu_torch.runtime.serve import ServingPipeline
+    from hipe_tpu_torch.utils.images import checker_image
+
+    pipeline = _pipeline_of(args)
+    if pipeline is None:
+        return 1
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"Error: serve runs on a CUDA device unless --device cpu; got --device "
+            f"{args.device} with torch.cuda.is_available() = False")
+    try:
+        if args.image is None:
+            source = IMAGE_NAME
+            payload = jio.encode_bytes(checker_image(256, 256, 3, seed=0), args.quality)
+        else:
+            source = args.image
+            with open(args.image, "rb") as f:
+                payload = jio.encode_bytes(jio.decode_bytes(f.read()), args.quality)
+    except (OSError, ValueError) as e:
+        print(f"Error: cannot load input image: {e}", file=sys.stderr)
+        return 1
+    except RuntimeError as e:
+        print(f"Error: {str(e).splitlines()[0]}", file=sys.stderr)
+        return 1
+    batch = max(1, min(args.batch_size, args.num_images))
+    card = gpu_name_and_power_limit() if device.type == "cuda" else "cpu"
+    print("========== SERVING CONFIGURATION ==========")
+    print(f"Pipeline: {args.pipeline_name} (stages {', '.join(pipeline.filters)})")
+    print(f"Stream: {args.num_images} JPEGs of {source}, batch {batch}, "
+          f"quality {args.quality}")
+    print("Decode: " + ("device (entropy on the host, IDCT K6/upsample/colour on the card)"
+                        if args.decode_on_device else "host (native libjpeg)"))
+    if not args.no_encode:
+        print("Encode: " + ("device (colour/downsample/fDCT K7/quantize on the card, "
+                            "entropy on the host)" if args.encode_on_device
+                            else "host (native libjpeg)"))
+    print(f"Card: {card}")
+    serve = ServingPipeline(
+        pipeline, device=device, quality=args.quality,
+        decode_on_device=args.decode_on_device, encode_on_device=args.encode_on_device,
+        encode_subsampling=args.encode_subsampling,
+        encode_progressive=args.encode_progressive,
+        encode_arithmetic=args.encode_arithmetic,
+        encode_restart_interval=args.encode_restart_interval,
+        encode_optimize=args.encode_optimize)
+
+    def batches():
+        sent = 0
+        while sent < args.num_images:
+            n = min(batch, args.num_images - sent)
+            yield [payload] * n
+            sent += n
+
+    with serve:
+        n_out = sum(len(r) for r in serve.run(batches(), encode=not args.no_encode))
+    st = serve.stats
+    print("\n========== SERVING RESULTS ==========")
+    print(f"   Images processed: {n_out}")
+    print(f"   Host decode time: {st.decode_ms:.1f} ms")
+    print(f"   Device time: {st.device_ms:.1f} ms")
+    print(f"   Encode time: {st.encode_ms:.1f} ms")
+    print(f"   Wall time: {st.wall_ms:.1f} ms")
+    print(f"   Images per second: {st.img_per_s:.2f}")
+    if args.json:
+        print(json.dumps({
+            "pipeline": args.pipeline_name,
+            "num_images": n_out,
+            "decode_on_device": bool(args.decode_on_device),
+            "encode_on_device": bool(args.encode_on_device),
+            "img_per_s": st.img_per_s,
+            "decode_ms": st.decode_ms,
+            "device_ms": st.device_ms,
+            "encode_ms": st.encode_ms,
+            "wall_ms": st.wall_ms,
+            "device": str(device),
+            "card": card,
+        }))
+    return 0 if n_out == args.num_images else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "stream":
         return _main_stream(args)
+    if args.command == "serve":
+        return _main_serve(args)
     raise AssertionError(args.command)
 
 

@@ -1,0 +1,140 @@
+"""The JPEG codec's DCTs on the card: wrappers of kernels K6 and K7
+(``csrc/dct_blocks.cu``).
+
+The counterpart of ``hipe_tpu.ops.pallas_dct``: K6 computes what
+``_idct_kernel`` computes (dequantize, islow IDCT, range limit) and K7 what
+``_fdct_kernel`` computes (level shift, islow fDCT, quantize), in the card's
+layout: coefficients ``(B, Hb, Wb, 64)`` int16 in natural order and the
+component's sample grid ``(B, Hb*8, Wb*8)`` uint8.
+
+For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
+tensor it runs the plain PyTorch version (:func:`hipe_tpu_torch.ops.jpeg_decode.idct8x8_islow`,
+:func:`hipe_tpu_torch.ops.jpeg_encode.fdct_quantize_plain`), which is also
+what the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from hipe_tpu_torch.ops import _build
+
+
+@functools.cache
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load_library()
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.hipe_dequant_idct_s16, lib.hipe_fdct_quantize_u8):
+        fn.argtypes = [vp, vp, ctypes.POINTER(ctypes.c_uint), ci, ci, ci, vp]
+        fn.restype = ci
+    lib.hipe_cuda_error_string.argtypes = [ci]
+    lib.hipe_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def quant_table(qtable) -> np.ndarray:
+    """A quant table as 64 uint32 in natural order; raises unless it has 64
+    entries in 1..65535 (8- and 16-bit tables)."""
+    q = np.asarray(qtable.cpu() if isinstance(qtable, torch.Tensor) else qtable)
+    if q.shape != (64,):
+        raise ValueError(f"expected a (64,) quant table, got shape {q.shape}")
+    q = q.astype(np.int64)
+    if q.min() < 1 or q.max() > 65535:
+        raise ValueError(f"quant table entries must be in 1..65535, got {q.min()}..{q.max()}")
+    return q.astype(np.uint32)
+
+
+def _check(t: torch.Tensor, dtype: torch.dtype, what: str, align: int) -> None:
+    """Raise unless ``t`` is a contiguous ``(B, Hb, Wb, 64)`` int16 or
+    ``(B, H, W)`` uint8 tensor, ``align``-byte aligned on the card."""
+    layout = "(B, Hb, Wb, 64) int16" if dtype == torch.int16 else "(B, Hb*8, Wb*8) uint8"
+    if t.dtype != dtype or t.dim() != (4 if dtype == torch.int16 else 3):
+        raise TypeError(f"{what}: expected a {layout} tensor, got {t.dtype} "
+                        f"of shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % align:
+        raise ValueError(f"{what} must be {align}-byte aligned on the card")
+
+
+def _launch(fn, src: torch.Tensor, dst: torch.Tensor, q: np.ndarray, b: int, hb: int,
+            wb: int, what: str) -> None:
+    with torch.cuda.device(src.device):
+        rc = fn(src.data_ptr(), dst.data_ptr(), q.ctypes.data_as(ctypes.POINTER(ctypes.c_uint)),
+                b, hb, wb, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = _kernel_lib().hipe_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed for {(b, hb, wb)} blocks: {msg} "
+                           f"(cudaError {rc})")
+
+
+def dequant_idct_cuda(coefs: torch.Tensor, qtable, *,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """K6: dequantize + islow IDCT + range limit of a block grid.
+
+    ``coefs``: ``(B, Hb, Wb, 64)`` int16 quantized coefficients in natural
+    order; ``qtable``: the component's ``(64,)`` table. Returns the sample
+    grid ``(B, Hb*8, Wb*8)`` uint8 (into ``out`` if given), bit-exact
+    against libjpeg's jidctint.c with its int32 wrap-around.
+    """
+    _check(coefs, torch.int16, "coefficients", 2)
+    if coefs.shape[-1] != 64:
+        raise ValueError(f"coefficients must end in 64, got shape {tuple(coefs.shape)}")
+    q = quant_table(qtable)
+    b, hb, wb, _ = coefs.shape
+    if out is not None:
+        if out.shape != (b, hb * 8, wb * 8) or out.device != coefs.device:
+            raise ValueError(f"out must be {(b, hb * 8, wb * 8)} on {coefs.device}")
+        _check(out, torch.uint8, "out", 8)
+    if coefs.device.type == "cpu":
+        # Imported here: jpeg_decode imports this module.
+        from hipe_tpu_torch.ops.jpeg_decode import idct8x8_islow
+
+        y = idct8x8_islow(coefs, q)
+        return y if out is None else out.copy_(y)
+    if out is None:
+        out = torch.empty((b, hb * 8, wb * 8), dtype=torch.uint8, device=coefs.device)
+    _launch(_kernel_lib().hipe_dequant_idct_s16, coefs, out, q, b, hb, wb, "dequant_idct_s16")
+    dequant_idct_cuda.launches += 1
+    return out
+
+
+dequant_idct_cuda.launches = 0
+
+
+def fdct_quantize_cuda(grid: torch.Tensor, qtable, *,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """K7: level shift + islow fDCT + quantize of a padded sample grid.
+
+    ``grid``: ``(B, Hb*8, Wb*8)`` uint8; ``qtable``: ``(64,)``. Returns
+    ``(B, Hb, Wb, 64)`` int16 coefficients in natural order (into ``out``
+    if given), bit-exact against libjpeg's jcfdctint.c and jcdct.c.
+    """
+    _check(grid, torch.uint8, "grid", 8)
+    b, h, w = grid.shape
+    if h % 8 or w % 8 or h == 0 or w == 0:
+        raise ValueError(f"grid sides must be positive multiples of 8, got {(h, w)}")
+    q = quant_table(qtable)
+    hb, wb = h // 8, w // 8
+    if out is not None:
+        if out.shape != (b, hb, wb, 64) or out.device != grid.device:
+            raise ValueError(f"out must be {(b, hb, wb, 64)} on {grid.device}")
+        _check(out, torch.int16, "out", 16)
+    if grid.device.type == "cpu":
+        # Imported here: jpeg_encode imports this module.
+        from hipe_tpu_torch.ops.jpeg_encode import fdct_quantize_plain
+
+        y = fdct_quantize_plain(grid, q)
+        return y if out is None else out.copy_(y)
+    if out is None:
+        out = torch.empty((b, hb, wb, 64), dtype=torch.int16, device=grid.device)
+    _launch(_kernel_lib().hipe_fdct_quantize_u8, grid, out, q, b, hb, wb, "fdct_quantize_u8")
+    fdct_quantize_cuda.launches += 1
+    return out
+
+
+fdct_quantize_cuda.launches = 0

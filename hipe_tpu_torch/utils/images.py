@@ -1,9 +1,9 @@
 """Image layout utilities (copy of ``hipe_tpu.utils.images``' numpy helpers).
 
 The kernels work on planar ``(N*C, H, W)`` planes, one contiguous plane per
-(image, channel); these convert to and from channels-last batches. There is
-no JPEG loading here: the port's slice carries no codec, and the stream's
-default image is :func:`checker_image`.
+(image, channel); these convert to and from channels-last batches. The
+streams' default image is :func:`checker_image`; JPEG files go through
+:mod:`hipe_tpu_torch.io_.jpeg`.
 """
 
 from __future__ import annotations

@@ -117,11 +117,14 @@ def test_importing_the_port_imports_no_jax():
             "hipe_tpu_torch.runtime.device_stream, hipe_tpu_torch.ops.cuda_blur, "
             "hipe_tpu_torch.ops.cuda_chain, hipe_tpu_torch.ops.cuda_rank_chain, "
             "hipe_tpu_torch.ops.cuda_tiled, hipe_tpu_torch.models.pipelines, "
-            "hipe_tpu_torch.ops._build; "
+            "hipe_tpu_torch.ops._build, hipe_tpu_torch.io_.jpeg, "
+            "hipe_tpu_torch.ops.jpeg_decode, hipe_tpu_torch.ops.jpeg_encode, "
+            "hipe_tpu_torch.ops.cuda_dct, hipe_tpu_torch.runtime.serve; "
             "hipe_tpu_torch.DeviceStreamRunner, hipe_tpu_torch.PIPELINES, "
             "hipe_tpu_torch.filter_chain, hipe_tpu_torch.register_lut_filter, "
             "hipe_tpu_torch.register_rank_filter, "
-            "hipe_tpu_torch.register_kernel_filter; "
+            "hipe_tpu_torch.register_kernel_filter, hipe_tpu_torch.ServingPipeline, "
+            "hipe_tpu_torch.decode_coefficients, hipe_tpu_torch.encode_bytes_device; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('hipe_tpu.') or m == 'hipe_tpu' "
             "for m in sys.modules), 'hipe_tpu imported'")

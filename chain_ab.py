@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Time the fused chain kernels K2 and K3 of this checkout against another
+checkout's, in turns, on one NVIDIA GPU.
+
+    git archive <commit> chip_smoke.py hipe_tpu_torch | tar -x -C build/other
+    python3 chain_ab.py build/other
+    python3 chain_ab.py --stages build/other
+
+Runs four processes one after another, each on one tree: OTHER, THIS,
+THIS, OTHER. Each builds its tree's kernels (into that tree's ``build/``).
+By default each runs that tree's ``chip_smoke.py`` phases 7 and 8 (the
+chain and denoise main paths over the 5000-image stream: autotune, verify,
+three sessions, 3 chained passes against the plain version), and the first
+run of each tree also times every program of :data:`CHAINS` over the same
+stream, once each at every ``rows_per_block`` its tree takes, keeping the
+fastest. With ``--stages`` each instead times the short programs of
+:data:`STAGES` (what a stage adds to a pass) over a random 5000-image stream
+at 8, 32, 64 and 128 rows a block. Prints one JSON line a run and writes
+them to ``build/chain_ab/chain_ab.jsonl`` (``chain_ab_stages.jsonl``);
+exits non-zero if a run fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# K2's and K3's programs, as chip_smoke.py held them before the redesign
+# (its K2_CHAINS and K3_CHAINS less the two main paths): the same programs
+# on both trees. "dim", "q" and "tilt" are registered as chip_smoke.py does.
+CHAINS = (
+    ("sharpen",), ("edge",), ("invert",), ("sharpen", "invert"), ("gaussian5", "solarize"),
+    ("posterize4", "gaussian9", "edge"), ("gaussian7",), ("dim", "gaussian3"),
+    ("posterize1", "edge"),
+    ("erode", "dilate"), ("dilate", "erode"), ("median",), ("median5", "edge"),
+    ("erode5", "dilate5"), ("median7",), ("posterize4", "median9"),
+    ("pil_emboss", "gaussian3"), ("pil_find_edges", "pil_contour", "pil_smooth_more"),
+    ("q", "edge"), ("dim", "tilt", "median"),
+)
+# One point stage alone, one to four of them (the cost of a stage that
+# writes shared memory), each main-path stage before a point stage, and
+# the two main paths.
+STAGES = (
+    ("invert",), ("invert",) * 2, ("invert",) * 4, ("gaussian3", "invert"),
+    ("sharpen", "invert"), ("edge", "invert"), ("median", "invert"),
+    ("gaussian3", "sharpen", "edge"), ("median", "gaussian3"),
+)
+STAGE_ROWS_PER_BLOCK = (8, 32, 64, 128)
+
+
+def stages(cs) -> dict:
+    """ms a pass of each program of STAGES at each of STAGE_ROWS_PER_BLOCK."""
+    import torch
+
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, (cs.NUM_IMAGES * cs.CHANNELS, cs.SIDE, cs.SIDE),
+                      dtype=torch.uint8, device="cuda", generator=gen)
+    out = torch.empty_like(x)
+    return {f"{'+'.join(names)}@{rpb}": cs.cuda_ms(lambda: filter_chain_planar_cuda(
+                x, names, rows_per_block=rpb, out=out), reps=5)
+            for names in STAGES for rpb in STAGE_ROWS_PER_BLOCK}
+
+
+def one(root: str, mode: str) -> dict:
+    """One tree's run, in this process: ``root``'s own package and script;
+    ``mode`` is "sweep" (the main paths and CHAINS), "paths" or "stages"."""
+    root = os.path.abspath(root)
+    sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from hipe_tpu_torch.ops import blur as tblur
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+
+    card = cs.phase_env()
+    cs.phase_build(card)
+    res = {"root": root, "card": card}
+    if mode == "stages":
+        res["stages"] = stages(cs)
+        return res
+    for phase, name in (("7", "chain"), ("8", "denoise")):
+        res[name] = cs.phase_main_path(card, phase, name)["ms"]
+    if mode == "sweep":
+        tblur.register_lut_filter("dim", tblur.brightness_lut(0.7))
+        tblur.register_rank_filter("q", 5, 6)
+        tblur.register_kernel_filter("tilt", range(-12, 13), 7, 2.5)
+        runner = DeviceStreamRunner("blur3", num_images=cs.NUM_IMAGES, device="cuda")
+        x, out = runner.stream, runner._bufs[0]
+        res["sweep"] = {}
+        for names in CHAINS:
+            times = {}
+            for rpb in runner.block_candidates():
+                try:
+                    times[rpb] = cs.cuda_ms(lambda: filter_chain_planar_cuda(
+                        x, names, rows_per_block=rpb, out=out), reps=3)
+                except RuntimeError:
+                    continue  # a tile beyond shared memory: refused
+            best = min(times, key=times.get)
+            res["sweep"]["+".join(names)] = {"ms": times[best], "rows_per_block": best}
+        del runner, x, out
+        torch.cuda.empty_cache()
+    return res
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--one":
+        print("RESULT " + json.dumps(one(sys.argv[2], sys.argv[3])), flush=True)
+        return 0
+    staged = sys.argv[1:2] == ["--stages"]
+    args = sys.argv[2:] if staged else sys.argv[1:]
+    if len(args) != 1:
+        raise SystemExit(__doc__)
+    other = os.path.abspath(args[0])
+    if not os.path.exists(os.path.join(other, "chip_smoke.py")):
+        raise SystemExit(f"{other} holds no chip_smoke.py")
+    out_dir = os.path.join(HERE, "build", "chain_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    results, failed = [], False
+    modes = ("stages",) * 4 if staged else ("sweep", "sweep", "paths", "paths")
+    for root, mode in zip((other, HERE, HERE, other), modes):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, mode],
+                              capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.splitlines()
+        for ln in lines:
+            if not ln.startswith("RESULT "):
+                print(ln, flush=True)
+        found = [json.loads(ln[len("RESULT "):]) for ln in lines if ln.startswith("RESULT ")]
+        if proc.returncode or not found:
+            failed = True
+            print(f"run on {root} failed ({proc.returncode}):\n{proc.stderr[-4000:]}", flush=True)
+            continue
+        found[0]["seconds"] = time.perf_counter() - t0
+        results.append(found[0])
+        print(json.dumps(found[0]), flush=True)
+    name = "chain_ab_stages.jsonl" if staged else "chain_ab.jsonl"
+    with open(os.path.join(out_dir, name), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in results)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

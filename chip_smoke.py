@@ -14,20 +14,27 @@ Phases, one line each:
    (``hipe_tpu_torch/csrc/tiled_blur_planar.cu``), K5
    (``hipe_tpu_torch/csrc/tiled_stage_planar.cu``), K6 and K7
    (``hipe_tpu_torch/csrc/dct_blocks.cu``) from the checkout's sources, one
-   ``nvcc`` a source, all at once.
+   ``nvcc`` a source, all at once; prints the ptxas report (registers,
+   spills) of K2's planar kernel and K3's four instantiations, and fails if
+   any of them spills.
 3. Holds K1 against its plain PyTorch version on distinct random planes:
-   radius 1-4, clamp and valid modes, ragged shapes, one full-stream pass,
-   and every ``rows_per_block`` the autotune sweeps. Max-abs error must be 0.
+   radius 1-4, clamp and valid modes, ragged shapes (widths 1-5, 7, 40, 53,
+   255, 257, 320, 2100), one full-stream pass, and every ``rows_per_block`` the
+   autotune sweeps. Max-abs error must be 0.
 4. Holds K2 against its plain PyTorch chain the same way: band and point
-   chains (a registered LUT among them), clamp and valid modes, ragged
-   shapes, the full stream for ``chain``, every ``rows_per_block``.
+   chains (a registered LUT among them, 32 gaussian9 stages whose halo is
+   16 times an 8-row tile), clamp and valid modes, ragged shapes, each also
+   with input and output at storage offset 1, the full stream for
+   ``chain``, every ``rows_per_block`` whose tile fits shared memory.
 5. Holds K3 against its plain PyTorch chain the same way: rank-family and
    registered-kernel chains (median, erode/dilate, median5/7/9, ``pil_*``
-   presets, a registered rank, kernel and LUT), clamp and valid modes,
-   ragged shapes, the full stream for ``denoise``, every ``rows_per_block``.
+   presets, a registered rank, kernel and LUT, a median and 31 gaussian9
+   stages), clamp and valid modes, ragged shapes and offsets, the full
+   stream for ``denoise``, every ``rows_per_block`` that fits.
 6. The blur3 main path: the 5000-image 256x256x3 stream through
    ``DeviceStreamRunner`` (autotune, verify against the NumPy oracle, three
-   throughput sessions), with the launch counts taken over that run alone.
+   throughput sessions), with the launch counts taken over that run alone;
+   its bound and the device's idle share (torch.profiler) over 10 passes.
 7. The chain main path (blur->sharpen->edge), the same way, verified
    against the pipeline's plain path.
 8. The denoise main path (median -> gaussian3), the same way.
@@ -60,7 +67,8 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     K5, K5 a pass) and ``blur3`` (K4): autotune of the tile shape, verify,
     three sessions, the device's idle share (torch.profiler), 3 chained
     passes against the plain chain; only K4 and K5 may launch. K4's and
-    K5's own times are taken at the chosen tile,
+    K5's own times are taken at the chosen tile (and, for the record, at the
+    swept tile that suits each best),
     and the fused route (K2 or K1 at the tallest tile that fits) is timed
     for the record.
 
@@ -121,7 +129,11 @@ SESSIONS = 3
 # 7 of 4000x2250): its int32 temporaries for the whole (15000, 256, 256)
 # stream would be ~3.9 GB each.
 PLAIN_CHUNK_PIXELS = 1000 * 256 * 256
-SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1))
+# Widths 1-5, 7, 40, 53, 255, 257, 320, 2100; 300 rows for a 32-stage
+# chain's valid mode. K2 and K3 also take each at storage offset 1.
+SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1), (1, 13, 2), (1, 11, 3),
+                (1, 12, 4), (1, 10, 5), (2, 20, 255), (2, 21, 257), (2, 300, 40),
+                (2, 9, 2100))
 ROWS_SHAPES = ((4, 240, 320), (3, 37, 53), (2, 9, 1))  # (B, H, W pixels)
 LARGE_H, LARGE_W, LARGE_FRAMES = 2250, 4000, 100
 TILED_SHAPES = ((3, LARGE_H, LARGE_W), (2, 131, 1100), (3, 2, 700), (2, 150, 3),
@@ -160,6 +172,7 @@ K2_CHAINS = (
     ("gaussian7",),
     (LUT_NAME, "gaussian3"),
     ("posterize1", "edge"),
+    ("gaussian9",) * 32,  # total radius 128: a halo 16 times an 8-row tile
 )
 K3_CHAINS = (
     ("median", "gaussian3"),
@@ -174,6 +187,7 @@ K3_CHAINS = (
     ("pil_find_edges", "pil_contour", "pil_smooth_more"),
     (RANK_NAME, "edge"),
     (LUT_NAME, KERNEL_NAME, "median"),
+    ("median",) + ("gaussian9",) * 31,
 )
 K5_STAGES = ("sharpen", "edge", "invert", "solarize", "posterize4", LUT_NAME, "median",
              "erode", "dilate", "median5", RANK_NAME, "median7", "median9", "pil_emboss",
@@ -246,6 +260,22 @@ def phase_build(card: str) -> None:
              f"{spills} bytes of spill stores in all" if regs else "no report")
     print(f"[2 build] {lib} in {secs:.2f} s (0 s: already built); ptxas: {ptxas} "
           f"(full report: build.log beside it) [{card}]", flush=True)
+    # K2's planar kernel and K3's four instantiations (widest window 3-9).
+    report = []
+    for entry in log.split("Compiling entry function")[1:]:
+        head = entry.split("\n")[0]
+        name = re.search(r"chain_lanes_kernel|rank_chain_planar_u8_kernelILi(\d)E", head)
+        if name:
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            label = f"K3<{name.group(1)}>" if name.group(1) else "K2 planar"
+            report.append((label, int(regs.group(1)) if regs else -1,
+                           int(spill.group(1)) if spill else -1))
+    if len(report) != 5 or any(sp != 0 for _, _, sp in report):
+        raise AssertionError(f"ptxas report of K2 and K3 missing, or spills: {report}")
+    print(f"[2 build] K2/K3 ptxas: " + "; ".join(
+        f"{label} {regs} registers, {sp} B spill stores" for label, regs, sp in report)
+        + f" [{card}]", flush=True)
 
 
 def _chunk(x: torch.Tensor) -> int:
@@ -375,9 +405,12 @@ def phase_kernel_vs_plain(card: str) -> int:
 
 def chain_kernel_vs_plain(label: str, fn, chains: tuple, seed: int) -> tuple[int, int, int]:
     """Hold a chain kernel (through ``fn``, whose launch count must grow by
-    one a launch) against the plain chain: ``chains`` on the small shapes
+    one a launch) against the plain chain: ``chains`` on the small shapes,
+    each also with input and output at storage offset 1 (unaligned rows),
     and the first of them on the full stream, clamp and valid, every
-    ``rows_per_block``. Returns (max-abs error, launches, cases)."""
+    ``rows_per_block`` whose tile fits shared memory. Returns (max-abs
+    error, launches, cases)."""
+    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK, fused_shared_bytes
     from hipe_tpu_torch.ops.blur import chain_radius
     from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
 
@@ -385,22 +418,30 @@ def chain_kernel_vs_plain(label: str, fn, chains: tuple, seed: int) -> tuple[int
     gen = torch.Generator(device=dev).manual_seed(seed)
     before = fn.launches
     chain = chains[0]
-    cases = [((NUM_IMAGES * CHANNELS, SIDE, SIDE), chain, h_pad) for h_pad in (True, False)]
-    cases += [(shape, names, h_pad) for shape in SMALL_SHAPES for names in chains
-              for h_pad in (True, False) if h_pad or shape[1] > 2 * chain_radius(names)]
+    cases = [((NUM_IMAGES * CHANNELS, SIDE, SIDE), chain, h_pad, 0) for h_pad in (True, False)]
+    cases += [(shape, names, h_pad, offset) for shape in SMALL_SHAPES for names in chains
+              for h_pad in (True, False) for offset in (0, 1)
+              if h_pad or shape[1] > 2 * chain_radius(names)]
     worst, checked = 0, 0
-    for shape, names, h_pad in cases:
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+    for shape, names, h_pad, offset in cases:
+        numel = shape[0] * shape[1] * shape[2]
+        x = torch.randint(0, 256, (numel + offset,), dtype=torch.uint8, device=dev,
+                          generator=gen)[offset:].view(shape)
         want = plain_chunked(x, names, h_pad)
+        out = torch.empty(want.numel() + offset, dtype=torch.uint8,
+                          device=dev)[offset:].view(want.shape)
         for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, want.shape[1]}):
-            got = fn(x, names, h_pad=h_pad, rows_per_block=rpb)
+            if fused_shared_bytes(min(rpb, want.shape[1]), shape[2], names) > SHARED_BYTES_PER_BLOCK:
+                continue  # the launch is refused; the card-only tests hold that
+            got = fn(x, names, h_pad=h_pad, rows_per_block=rpb, out=out)
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
             if err:
-                raise AssertionError(f"{label} != plain: shape {shape} {names} "
+                raise AssertionError(f"{label} != plain: shape {shape} offset {offset} "
+                                     f"{names[:4]}{'...' if len(names) > 4 else ''} "
                                      f"h_pad={h_pad} rows_per_block={rpb}: max-abs {err}")
             worst, checked = max(worst, err), checked + 1
-        del x, want, got
+        del x, want, out
     grew = fn.launches - before
     if grew != checked:
         raise AssertionError(f"{label} launch counter grew by {grew}, expected {checked}")
@@ -502,6 +543,8 @@ def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
                              f"version: {chain_err}")
     del want
     plain_ms = cuda_ms(lambda: plain_chunked(runner.stream, names))
+    busy = device_busy(lambda: runner.run_passes(PASSES))
+    bound_ms, bound_by = bound(2 * runner.stream.numel(), names, runner.stream.numel())
     by_rate = sorted(sessions, key=lambda s: s["img_per_s"])
     med = by_rate[len(by_rate) // 2]
     print(f"[{phase} main path] {pipeline} {names} {NUM_IMAGES}x{SIDE}x{SIDE}x{CHANNELS}: "
@@ -509,14 +552,15 @@ def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
           f"chose {runner.tuning['chosen']}; max_abs_err {err}; sessions img/s "
           f"{[round(s['img_per_s'], 1) for s in by_rate]}; median per-pass "
           f"{med['per_pass_s'] * 1e3:.4f} ms, {med['img_per_s']:.1f} img/s, "
-          f"{med['gb_per_s']:.1f} GB/s; plain per-pass {plain_ms:.4f} ms; "
-          f"{kernel} launches {counts[kernel]} [{card}]", flush=True)
-    bound_ms, bound_by = bound(2 * runner.stream.numel(), names, runner.stream.numel())
+          f"{med['gb_per_s']:.1f} GB/s; bound {bound_ms:.4f} ms ({bound_by}); device idle "
+          f"over {PASSES} passes {1 - busy[1] / busy[0]:.2%} (kernels {busy[1]:.3f} of "
+          f"{busy[0]:.3f} ms); plain per-pass {plain_ms:.4f} ms; {kernel} launches "
+          f"{counts[kernel]} [{card}]", flush=True)
     del runner, got
     torch.cuda.empty_cache()
     return {"launches": counts[kernel], "ms": med["per_pass_s"] * 1e3,
             "plain_ms": plain_ms, "chain_err": chain_err, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "idle": 1 - busy[1] / busy[0]}
 
 
 def check_against(label: str, fn, want: torch.Tensor, what: str) -> int:
@@ -538,9 +582,15 @@ def phase_rows_vs_plain(card: str, phase: str, label: str, fn, counter, chains: 
     memory. With ``record``, also time the first chain over the full rows
     stream at each of those rows_per_block, and its plain version, for the
     record."""
-    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK, fused_shared_bytes
+    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK
     from hipe_tpu_torch.ops.blur import chain_radius
     from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+
+    def rows_entry_bytes(rows: int, lanes: int, names: tuple) -> int:
+        """Shared memory of K1's or K2's rows entry a block (both keep their
+        first design): K1's uint16 row sums, or K2's two unpadded buffers."""
+        r = chain_radius(names)
+        return (rows + 2 * r) * lanes * 2
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -555,7 +605,7 @@ def phase_rows_vs_plain(card: str, phase: str, label: str, fn, counter, chains: 
                           generator=gen)
         want = plain_rows_chunked(x, c, names, h_pad)
         for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, want.shape[1]}):
-            if fused_shared_bytes(min(rpb, want.shape[1]), w * c, names) > SHARED_BYTES_PER_BLOCK:
+            if rows_entry_bytes(min(rpb, want.shape[1]), w * c, names) > SHARED_BYTES_PER_BLOCK:
                 continue  # the launch is refused; the card-only tests hold that
             check_against(label, lambda: fn(x, c, names, h_pad=h_pad, rows_per_block=rpb),
                           want, f"rows {(b, h, w * c)} C={c} {names} h_pad={h_pad} "
@@ -574,7 +624,7 @@ def phase_rows_vs_plain(card: str, phase: str, label: str, fn, counter, chains: 
         times = {rpb: cuda_ms(lambda: fn(x, CHANNELS, names, rows_per_block=rpb, out=out),
                               reps=PASSES)
                  for rpb in ROWS_PER_BLOCK_CANDIDATES
-                 if fused_shared_bytes(rpb, SIDE * CHANNELS, names) <= SHARED_BYTES_PER_BLOCK}
+                 if rows_entry_bytes(rpb, SIDE * CHANNELS, names) <= SHARED_BYTES_PER_BLOCK}
         best = min(times, key=times.get)
         plain_ms = cuda_ms(lambda: plain_rows_chunked(x, CHANNELS, names))
         note = (f"; for the record, {names} over the {NUM_IMAGES}-image rows stream "
@@ -729,14 +779,20 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
     k5_names = tuple(nm for nm in names if nm not in GAUSSIANS)
     own = {}
     for label, stages, fn in (
-            ("K4", k4_names, lambda nm: cuda_tiled.gaussian_blur_planar_tiled_cuda(
-                stream, FILTER_RADIUS[nm], tile=tile, out=buf)),
-            ("K5", k5_names, lambda nm: cuda_tiled.filter_stage_planar_tiled_cuda(
-                stream, nm, tile=tile, out=buf))):
+            ("K4", k4_names, lambda nm, t=tile: cuda_tiled.gaussian_blur_planar_tiled_cuda(
+                stream, FILTER_RADIUS[nm], tile=t, out=buf)),
+            ("K5", k5_names, lambda nm, t=tile: cuda_tiled.filter_stage_planar_tiled_cuda(
+                stream, nm, tile=t, out=buf))):
         if stages:
             ms = cuda_ms(lambda: [fn(nm) for nm in stages], reps=PASSES)
             plain = cuda_ms(lambda: [plain_chunked(stream, (nm,)) for nm in stages])
-            own[label] = {"ms": ms, "plain_ms": plain,
+            # For the record: the kernel at the swept tile that suits it best
+            # (the runner picks one tile for the whole chain).
+            best = min((cuda_ms(lambda: [fn(nm, t) for nm in stages], reps=3), t)
+                       for t in runner.tile_candidates()
+                       if max(cuda_tiled.shared_bytes(nm, t) for nm in stages)
+                       <= SHARED_BYTES_PER_BLOCK)
+            own[label] = {"ms": ms, "plain_ms": plain, "best": best,
                           "bound": bound(2 * stream.numel() * len(stages), stages,
                                          stream.numel())}
     # The fused route at the tallest tile that fits, for the record.
@@ -759,7 +815,7 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
           f"{med['gb_per_s']:.1f} GB/s; device idle over {PASSES} passes "
           f"{1 - busy[1] / busy[0]:.2%} (kernels {busy[1]:.3f} of {busy[0]:.3f} ms); "
           f"plain per-pass {plain_ms:.4f} ms; own "
-          f"{ {k: {'ms': round(v['ms'], 4), 'plain_ms': round(v['plain_ms'], 4)} for k, v in own.items()} }; "
+          f"{ {k: {'ms': round(v['ms'], 4), 'plain_ms': round(v['plain_ms'], 4), 'best_tile': v['best'][1], 'best_ms': round(v['best'][0], 4)} for k, v in own.items()} }; "
           f"fused route (rows_per_block {rpb}) {fused_ms:.4f} ms/pass; launches "
           f"{ {k: n for k, n in counts.items() if n} } [{card}]", flush=True)
     del runner, stream, buf
@@ -1046,8 +1102,11 @@ def main() -> int:
         lambda x, c, names, **kw: gaussian_blur_rows_cuda(
             x, c, FILTER_RADIUS[names[0]], **kw),
         gaussian_blur_rows_cuda, tuple((g,) for g in GAUSSIANS), seed=3)
+    # K2's rows entry keeps its first design, and its chains (not the
+    # 32-stage one that tests the planar entry's halo).
     k2_rows_err = phase_rows_vs_plain(card, "10", "K2 rows", filter_chain_rows_cuda,
-                                      filter_chain_rows_cuda, K2_CHAINS, seed=4, record=True)
+                                      filter_chain_rows_cuda, K2_CHAINS[:-1], seed=4,
+                                      record=True)
     k4_err = phase_tiled_vs_plain(
         card, "11", "K4",
         lambda x, name, **kw: gaussian_blur_planar_tiled_cuda(x, FILTER_RADIUS[name], **kw),
@@ -1102,6 +1161,7 @@ def main() -> int:
         "bound_ms": chain["bound_ms"],
         "bound_by": chain["bound_by"],
         "library_ms": no_library,
+        "device_idle": chain["idle"],
     }, {
         "name": "rank_chain_planar_u8",
         "route": "cuda",
@@ -1114,6 +1174,7 @@ def main() -> int:
         "bound_ms": denoise["bound_ms"],
         "bound_by": denoise["bound_by"],
         "library_ms": no_library,
+        "device_idle": denoise["idle"],
     }, {
         "name": "tiled_blur_planar_u8",
         "route": "cuda",

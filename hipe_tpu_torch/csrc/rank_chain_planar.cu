@@ -30,21 +30,31 @@
 // 3.35 TB/s), but a size-9 rank stage does per pixel 81 shared-memory loads
 // and 8 rounds of 81 compare-and-count, ~1.4k integer instructions, some
 // 1.4 T over the 983 M pixels of the 5000-image stream: ~80 ms at the
-// card's 64 int32 lanes a cycle on each of 132 SMs. A 3x3 median is 9 loads
-// and 19 min/max, the cost of K2's edge stage.
+// card's 64 int32 lanes a cycle on each of 132 SMs. The 3x3 stages of the
+// denoise stream cost, in the first design (one byte a thread, a clamp on
+// every tap, a division a byte), some 150 instructions a pixel: 7.79 ms;
+// in this one some 35, and 1.89 ms (NVIDIA H100 80GB HBM3, 700 W), 3.2x
+// the stream's bytes bound.
 //
-// What the design does about it: it keeps K2's proven skeleton (one block
-// per (plane, tile of rows_per_block rows), the input rows and halo staged
-// in shared memory once, stages between two shared uint8 buffers, one read
-// and one write a pass), and
-// - selects by bit-serial counting (the rank-th smallest is >= c iff
-//   |{v < c}| <= rank; 8 rounds fix the 8 bits, most significant first)
-//   over the window held in registers: no sort, no branch, no spill, the
-//   same code for every rank and for sizes 3 to 9;
+// What the design does about it: it runs chain_lanes.cuh's skeleton, which
+// K2's planar entry shares (one block per (plane, tile of rows_per_block
+// rows), the input rows and halo staged in shared memory once, stages
+// between two padded shared uint8 buffers whose pads hold each stage's own
+// edge, so no tap clamps; a 2-D thread map of 8-byte runs; one read and one
+// write a pass), and
+// - computes the 3x3 median, erode and dilate eight outputs at a time from
+//   per-column sorts and extrema in registers, with Hopper's three-input
+//   min/max (DPX; the median two pixels a word in 16-bit lanes), and every
+//   K2 stage as K2 does;
+// - selects a rank stage's value by bit-serial counting (the rank-th
+//   smallest is >= c iff |{v < c}| <= rank; 8 rounds fix the 8 bits, most
+//   significant first) over the window held in registers: no sort, no
+//   branch, no spill, the same code for every rank and for sizes 3 to 9;
 // - keeps a kernel stage's taps in registers too, loaded once a stage from
 //   one int32 table in device memory, and divides exactly (the card has
 //   integer division; C++ truncates toward zero, so the quotient is stepped
-//   down once for a negative numerator with a remainder: a floor);
+//   down once for a negative numerator with a remainder: a floor); these
+//   two are rank_stages.cuh's per-pixel functors, reading the padded buffer;
 // - is a separate kernel from K2, and instantiated for the widest window
 //   of the program (3, 5, 7 or 9): a size-9 selection needs some 90
 //   registers a thread, which would lower the occupancy of every band chain
@@ -58,6 +68,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "chain_lanes.cuh"
 #include "chain_stages.cuh"
 #include "rank_stages.cuh"
 
@@ -74,103 +85,97 @@ struct Program {
   int after[kMaxStages];  // Q_k: total radius of the stages after stage k
 };
 
-// One block per (plane, tile of rows_per_block output rows), as K2. Output
-// row o of a plane is plane row o + out_off (out_off = 0 clamp, R valid).
-// Both shared buffers hold plane rows [g0 - R, g1 + R) at rows 0.. of the
-// buffer. kMaxSize is the widest rank or kernel window the program holds.
+// One block per (plane, tile of rows_per_block output rows): chain_lanes.cuh's
+// tile, as K2's planar entry. Output row o of a plane is plane row o +
+// out_off (out_off = 0 clamp, R valid). Both buffers hold padded plane rows
+// [g0 - R, g1 + R); the LUTs follow them. kMaxSize is the widest rank or
+// kernel window the program holds.
 template <int kMaxSize>
 __global__ void __launch_bounds__(kThreads)
     rank_chain_planar_u8_kernel(const uint8_t* __restrict__ in,
                                 uint8_t* __restrict__ out,
-                                const uint8_t* __restrict__ luts,
+                                const uint8_t* __restrict__ luts, int n_luts,
                                 const int* __restrict__ taps, int h, int w,
                                 int ho, int out_off, int total_r,
-                                int rows_per_block, int tiles, Program prog) {
-  extern __shared__ uint8_t smem[];
-  const int buf_bytes = (rows_per_block + 2 * total_r) * w;
-  uint8_t* bufs[2] = {smem, smem + buf_bytes};
-  const int plane = blockIdx.x / tiles;
-  const int g0 = (blockIdx.x - plane * tiles) * rows_per_block + out_off;
-  const int g1 = min(g0 + rows_per_block, ho + out_off);
-  const int base = g0 - total_r;
-
-  // Stage the input rows [g0 - R, g1 + R) that lie in the plane.
-  {
-    const int a0 = max(base, 0);
-    const int a1 = min(g1 + total_r, h);
-    const int count = (a1 - a0) * w;
-    const uint8_t* src = in + (static_cast<size_t>(plane) * h + a0) * w;
-    uint8_t* dst = bufs[0] + (a0 - base) * w;
-    for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
-  }
+                                int rows_per_block, int tiles, int vec_in, int vec_out,
+                                Program prog) {
+  extern __shared__ __align__(16) uint8_t smem16[];
+  const lanes::Tile t(smem16, h, w, ho, out_off, total_r, rows_per_block, tiles);
+  uint8_t* lut_s = t.tail();
+  for (int i = threadIdx.x; i < n_luts * 256; i += kThreads) lut_s[i] = luts[i];
+  const int r_in = total_r - prog.after[0];
+  t.stage_input(in, max(t.base, -r_in), min(t.g1 + total_r, h + r_in), vec_in != 0);
   __syncthreads();
 
-  uint8_t* plane_out = out + static_cast<size_t>(plane) * ho * w;
-  int cur = 0;
   for (int k = 0; k < prog.n_stages; ++k) {
-    const bool last = k == prog.n_stages - 1;
     const int q = prog.after[k];
-    const int r0 = max(g0 - q, 0);
-    const int r1 = min(g1 + q, h);
-    const Src<1> s{bufs[cur], w, h, base, w, 0, 1};
-    uint8_t* dst = last ? plane_out : bufs[cur ^ 1];
-    const int dst_base = last ? out_off : base;
+    const int r0 = max(t.g0 - q, 0);
+    const int r1 = min(t.g1 + q, h);
+    const bool last = k + 1 == prog.n_stages;
+    const int rn = last ? 0 : q - prog.after[k + 1];  // the next stage's radius
+#define HIPE_STAGE(f) t.stage(f, k, rn, last, r0, r1, out, vec_out != 0)
     const int arg = prog.arg[k];
     const int size = prog.size[k];
     switch (prog.op[k]) {
       case kGaussian:
         switch (arg) {
-          case 1: run_stage(Gaussian<1>{}, s, dst, dst_base, r0, r1); break;
-          case 2: run_stage(Gaussian<2>{}, s, dst, dst_base, r0, r1); break;
-          case 3: run_stage(Gaussian<3>{}, s, dst, dst_base, r0, r1); break;
-          default: run_stage(Gaussian<4>{}, s, dst, dst_base, r0, r1); break;
+          case 1: HIPE_STAGE(lanes::Gaussian<1>{}); break;
+          case 2: HIPE_STAGE(lanes::Gaussian<2>{}); break;
+          case 3: HIPE_STAGE(lanes::Gaussian<3>{}); break;
+          default: HIPE_STAGE(lanes::Gaussian<4>{}); break;
         }
         break;
-      case kSharpen: run_stage(Sharpen{}, s, dst, dst_base, r0, r1); break;
-      case kEdge: run_stage(Edge{}, s, dst, dst_base, r0, r1); break;
-      case kInvert: run_stage(Invert{}, s, dst, dst_base, r0, r1); break;
-      case kSolarize: run_stage(Solarize{}, s, dst, dst_base, r0, r1); break;
-      case kPosterize: run_stage(Posterize{arg}, s, dst, dst_base, r0, r1); break;
-      case kLut: run_stage(Lut{luts + 256 * arg}, s, dst, dst_base, r0, r1); break;
-      case kMedian: run_stage(Median3{}, s, dst, dst_base, r0, r1); break;
-      case kErode: run_stage(Extreme3<false>{}, s, dst, dst_base, r0, r1); break;
-      case kDilate: run_stage(Extreme3<true>{}, s, dst, dst_base, r0, r1); break;
+      case kSharpen: HIPE_STAGE(lanes::Sharpen{}); break;
+      case kEdge: HIPE_STAGE(lanes::Edge{}); break;
+      case kInvert: HIPE_STAGE(lanes::Invert{}); break;
+      case kSolarize: HIPE_STAGE(lanes::Solarize{}); break;
+      case kPosterize: HIPE_STAGE(lanes::Posterize{arg}); break;
+      case kLut: HIPE_STAGE(lanes::Lut{lut_s + 256 * arg}); break;
+      case kMedian: HIPE_STAGE(lanes::Median3{}); break;
+      case kErode: HIPE_STAGE(lanes::Extreme3<false>{}); break;
+      case kDilate: HIPE_STAGE(lanes::Extreme3<true>{}); break;
       case kRank:
         switch (size) {
-          case 3: run_stage(Rank<3>{arg}, s, dst, dst_base, r0, r1); break;
+          case 3: HIPE_STAGE(lanes::PerPixel<Rank<3>>{{arg}}); break;
           case 5:
-            if constexpr (kMaxSize >= 5) run_stage(Rank<5>{arg}, s, dst, dst_base, r0, r1);
+            if constexpr (kMaxSize >= 5) HIPE_STAGE(lanes::PerPixel<Rank<5>>{{arg}});
             break;
           case 7:
-            if constexpr (kMaxSize >= 7) run_stage(Rank<7>{arg}, s, dst, dst_base, r0, r1);
+            if constexpr (kMaxSize >= 7) HIPE_STAGE(lanes::PerPixel<Rank<7>>{{arg}});
             break;
           default:
-            if constexpr (kMaxSize >= 9) run_stage(Rank<9>{arg}, s, dst, dst_base, r0, r1);
+            if constexpr (kMaxSize >= 9) HIPE_STAGE(lanes::PerPixel<Rank<9>>{{arg}});
             break;
         }
         break;
       default:  // kKernel
         switch (size) {
-          case 3: run_stage(Conv<3>(taps + arg), s, dst, dst_base, r0, r1); break;
+          case 3: HIPE_STAGE(lanes::PerPixel<Conv<3>>{Conv<3>(taps + arg)}); break;
           case 5:
-            if constexpr (kMaxSize >= 5) run_stage(Conv<5>(taps + arg), s, dst, dst_base, r0, r1);
+            if constexpr (kMaxSize >= 5) {
+              HIPE_STAGE(lanes::PerPixel<Conv<5>>{Conv<5>(taps + arg)});
+            }
             break;
           case 7:
-            if constexpr (kMaxSize >= 7) run_stage(Conv<7>(taps + arg), s, dst, dst_base, r0, r1);
+            if constexpr (kMaxSize >= 7) {
+              HIPE_STAGE(lanes::PerPixel<Conv<7>>{Conv<7>(taps + arg)});
+            }
             break;
           default:
-            if constexpr (kMaxSize >= 9) run_stage(Conv<9>(taps + arg), s, dst, dst_base, r0, r1);
+            if constexpr (kMaxSize >= 9) {
+              HIPE_STAGE(lanes::PerPixel<Conv<9>>{Conv<9>(taps + arg)});
+            }
             break;
         }
         break;
     }
+#undef HIPE_STAGE
     __syncthreads();
-    cur ^= 1;
   }
 }
 
-using KernelFn = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const int*, int,
-                          int, int, int, int, int, int, Program);
+using KernelFn = void (*)(const uint8_t*, uint8_t*, const uint8_t*, int, const int*, int,
+                          int, int, int, int, int, int, int, int, Program);
 
 int stage_radius(int op, int arg, int size) {
   switch (op) {
@@ -241,7 +246,8 @@ extern "C" int hipe_rank_chain_planar_u8(const void* in, void* out, int n, int h
   const int rpb = rows_per_block < ho ? rows_per_block : ho;
   const int tiles = (ho + rpb - 1) / rpb;
   const long long blocks = static_cast<long long>(n) * tiles;
-  const long long smem = 2LL * (rpb + 2 * total_r) * w;
+  const long long smem =
+      2LL * (rpb + 2 * total_r) * lanes::lane_pitch(w) + 256LL * n_luts;
   if (blocks > INT_MAX || smem > INT_MAX) return invalid;
   const KernelFn kernel = max_size == 3   ? rank_chain_planar_u8_kernel<3>
                           : max_size == 5 ? rank_chain_planar_u8_kernel<5>
@@ -255,10 +261,13 @@ extern "C" int hipe_rank_chain_planar_u8(const void* in, void* out, int n, int h
       return static_cast<int>(e);
     }
   }
+  const int vec_in = reinterpret_cast<uintptr_t>(in) % 16 == 0 && w % 16 == 0;
+  const int vec_out =
+      reinterpret_cast<uintptr_t>(out) % lanes::kRun == 0 && w % lanes::kRun == 0;
   kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<const uint8_t*>(luts), static_cast<const int*>(taps), h, w, ho,
-      h_pad ? 0 : total_r, total_r, rpb, tiles, prog);
+      static_cast<const uint8_t*>(luts), n_luts, static_cast<const int*>(taps), h, w, ho,
+      h_pad ? 0 : total_r, total_r, rpb, tiles, vec_in, vec_out, prog);
   return static_cast<int>(cudaGetLastError());
 }

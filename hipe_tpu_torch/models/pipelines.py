@@ -40,14 +40,29 @@ SHARED_BYTES_PER_BLOCK = 232_448
 ROUTE_TILE_ROWS = 32
 
 
+# Output bytes a thread of K2 or K3 computes at once (kRun in
+# csrc/chain_lanes.cuh).
+LANE_RUN = 8
+
+
+def lane_pitch(w: int) -> int:
+    """Bytes of one padded row of K2's and K3's stage buffers for planes
+    ``w`` wide (``lane_pitch`` in ``csrc/chain_lanes.cuh``): 16 lead bytes,
+    the row, pads to column ``round_up(w, LANE_RUN) + 3``, rounded up to 16."""
+    return (-(-w // LANE_RUN) * LANE_RUN + 20 + 15) & ~15
+
+
 def fused_shared_bytes(rows: int, w: int, names) -> int:
     """Shared memory of one block of the fused kernel that takes ``names``
-    for a tile of ``rows`` rows of ``w`` bytes and its halo: K1's uint16
-    row sums for a single gaussian, K2's and K3's two uint8 buffers else."""
+    for a tile of ``rows`` planar rows of ``w`` bytes and its halo: K1's
+    uint16 row sums for a single gaussian; else K2's and K3's two padded
+    uint8 buffers of :func:`lane_pitch` bytes a row and 256 bytes for each
+    distinct LUT stage."""
     r = tblur.chain_radius(names)
     if len(names) == 1 and names[0] in tblur.GAUSSIANS:
         return (rows + 2 * r) * w * 2
-    return 2 * (rows + 2 * r) * w
+    luts = len({nm for nm in names if nm in tblur.LUT_STAGES})
+    return 2 * (rows + 2 * r) * lane_pitch(w) + 256 * luts
 
 
 def routes_tiled(h: int, w: int, names) -> bool:

@@ -47,22 +47,41 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1)])
+# Widths 1-5, 7, 53, 255, 257, 320 and 2100: runs that end inside and past
+# the plane, rows that are not 16-byte aligned, more runs a row than threads.
+SHAPES = [(6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1), (1, 13, 2), (1, 11, 3),
+          (1, 12, 4), (1, 10, 5), (2, 20, 255), (2, 21, 257), (2, 9, 2100)]
+
+
+def _planes(cuda, shape, seed, offset=0):
+    """Random planes; with ``offset`` 1 a contiguous view at storage offset
+    1, so neither the planes nor their rows are aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = shape[0] * shape[1] * shape[2]
+    flat = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, device=cuda,
+                         generator=gen)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("h_pad", [True, False])
 @pytest.mark.parametrize("names", CHAINS, ids="+".join)
-def test_k3_matches_plain(cuda, names, h_pad, shape):
+def test_k3_matches_plain(cuda, names, h_pad, shape, offset):
     r = tblur.chain_radius(names)
     if not h_pad and shape[1] <= 2 * r:
         pytest.skip("valid mode needs H > 2R")
-    gen = torch.Generator(device=cuda).manual_seed(len(names) * 100 + shape[1])
-    x = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda, generator=gen)
+    x = _planes(cuda, shape, len(names) * 100 + shape[1], offset)
     want = tblur.filter_chain(x, names, h_axis=-2, w_axis=-1, h_pad=h_pad)
+    # The output at storage offset 1 too: its rows take byte stores.
+    out = torch.empty(want.numel() + offset, dtype=torch.uint8, device=cuda)[offset:]
+    out = out.view(want.shape)
     ho = want.shape[1]
     before = rank_chain_planar_cuda.launches
     k2_before = filter_chain_planar_cuda.launches
     rpbs = sorted({*ROWS_PER_BLOCK_CANDIDATES, ho})
     for rpb in rpbs:
-        got = filter_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb)
+        got = filter_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb, out=out)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"rows_per_block={rpb}"
     assert rank_chain_planar_cuda.launches == before + len(rpbs)
@@ -80,3 +99,16 @@ def test_k3_refuses_a_program_it_does_not_take(cuda):
     # The refused launches leave no error behind for the next one.
     got = rank_chain_planar_cuda(x[:, :, :256].contiguous(), ("median",) * 32)
     assert torch.equal(got, torch.zeros((1, 16, 256), dtype=torch.uint8, device=cuda))
+
+
+@pytest.mark.parametrize("h_pad", [True, False])
+def test_k3_halo_taller_than_the_tile(cuda, h_pad):
+    """A median and 31 gaussian9 stages (total radius 125) at 8 rows a
+    block through K3: the halo is 15 times the tile."""
+    names = ("median",) + ("gaussian9",) * 31
+    x = _planes(cuda, (2, 300, 40), 33)
+    want = tblur.filter_chain(x, names, h_axis=-2, w_axis=-1, h_pad=h_pad)
+    for rpb in (8, 16, 32):
+        got = rank_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"rows_per_block={rpb}"

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the fused chain kernels K2 and K3 of this checkout against another
-checkout's, in turns, on one NVIDIA GPU.
+"""Time the port's kernels of this checkout against another checkout's, in
+turns, on one NVIDIA GPU.
 
     git archive <commit> chip_smoke.py hipe_tpu_torch | tar -x -C build/other
     python3 chain_ab.py build/other
     python3 chain_ab.py --stages build/other
+    python3 chain_ab.py --tiled build/other
 
 Runs four processes one after another, each on one tree: OTHER, THIS,
 THIS, OTHER. Each builds its tree's kernels (into that tree's ``build/``).
@@ -15,9 +16,17 @@ run of each tree also times every program of :data:`CHAINS` over the same
 stream, once each at every ``rows_per_block`` its tree takes, keeping the
 fastest. With ``--stages`` each instead times the short programs of
 :data:`STAGES` (what a stage adds to a pass) over a random 5000-image stream
-at 8, 32, 64 and 128 rows a block. Prints one JSON line a run and writes
-them to ``build/chain_ab/chain_ab.jsonl`` (``chain_ab_stages.jsonl``);
-exits non-zero if a run fails.
+at 8, 32, 64 and 128 rows a block. With ``--tiled`` each runs its tree's
+``chip_smoke.py`` phase 14 (the chain and blur3 over 100 frames of
+4000x2250 on K4/K5, with K4's and K5's own times), and times K1, K2 and K3
+on the 5000-image stream and K6 and K7 on its coefficient grids at fixed
+knobs (kernels the tiled work leaves alone: they must not move); the
+first run of each tree also times every stage of ``chip_smoke.K5_STAGES``
+over the 100 frames at every tile its autotune sweeps, at full-width
+strips and at tiles of 128 rows or 1024 columns, keeping the fastest.
+Prints one JSON line a run and writes them to
+``build/chain_ab/chain_ab.jsonl`` (``chain_ab_stages.jsonl``,
+``chain_ab_tiled.jsonl``); exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -67,9 +76,97 @@ def stages(cs) -> dict:
             for names in STAGES for rpb in STAGE_ROWS_PER_BLOCK}
 
 
+def fixed_knobs(cs) -> dict:
+    """ms a pass of K1 (blur3), K2 (chain) and K3 (denoise) over a random
+    5000-image planar stream at 32, 64 and 128 rows a block, and of K6 and
+    K7 over the 5000-image 4:2:0 luma and chroma grids with the quality-90
+    tables."""
+    import torch
+
+    from hipe_tpu_torch.io_.jpeg import quality_tables
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, fdct_quantize_cuda
+    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, (cs.NUM_IMAGES * cs.CHANNELS, cs.SIDE, cs.SIDE),
+                      dtype=torch.uint8, device="cuda", generator=gen)
+    out = torch.empty_like(x)
+    res = {
+        "K1 blur3@32": cs.cuda_ms(lambda: gaussian_blur_planar_cuda(
+            x, 1, rows_per_block=32, out=out), reps=cs.PASSES),
+        "K2 chain@64": cs.cuda_ms(lambda: filter_chain_planar_cuda(
+            x, ("gaussian3", "sharpen", "edge"), rows_per_block=64, out=out), reps=cs.PASSES),
+        "K3 denoise@128": cs.cuda_ms(lambda: rank_chain_planar_cuda(
+            x, ("median", "gaussian3"), rows_per_block=128, out=out), reps=cs.PASSES),
+    }
+    del x, out
+    tables = quality_tables(90)
+    blocks = [(cs.SIDE // 8, cs.SIDE // 8, tables[0])] + [(cs.SIDE // 16, cs.SIDE // 16,
+                                                          tables[1])] * 2
+    coefs = [torch.randint(-2048, 2048, (cs.NUM_IMAGES, hb, wb, 64), dtype=torch.int32,
+                           device="cuda", generator=gen).to(torch.int16)
+             for hb, wb, _ in blocks]
+    grids = [dequant_idct_cuda(c, q) for c, (_, _, q) in zip(coefs, blocks)]
+    outs = [torch.empty_like(c) for c in coefs]
+    res["K6"] = cs.cuda_ms(lambda: [dequant_idct_cuda(c, q, out=g) for c, (_, _, q), g
+                                    in zip(coefs, blocks, grids)], reps=cs.PASSES)
+    res["K7"] = cs.cuda_ms(lambda: [fdct_quantize_cuda(g, q, out=o) for g, (_, _, q), o
+                                    in zip(grids, blocks, outs)], reps=cs.PASSES)
+    del coefs, grids, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def tiled(cs, card: str, sweep: bool) -> dict:
+    """Phase 14 of the tree's chip_smoke.py, the fixed-knob kernels and, with
+    ``sweep``, each K5 stage over the 100 frames at its best tile."""
+    import torch
+
+    from hipe_tpu_torch.ops import blur as tblur
+    from hipe_tpu_torch.ops.cuda_tiled import filter_stage_planar_tiled_cuda
+    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+    from hipe_tpu_torch.utils.images import checker_image
+
+    res = {}
+    for name in ("chain", "blur3"):
+        r = cs.phase_large_frames(card, name)
+        res[f"large {name}"] = {"ms": r["ms"], "own": {
+            k: {"ms": v["ms"], "best_ms": v["best"][0], "best_tile": v["best"][1]}
+            for k, v in r["own"].items()}}
+    res["fixed knobs"] = fixed_knobs(cs)
+    if sweep:
+        tblur.register_lut_filter(cs.LUT_NAME, tblur.brightness_lut(0.7))
+        tblur.register_rank_filter(cs.RANK_NAME, 5, 6)
+        tblur.register_kernel_filter(cs.KERNEL_NAME, range(-12, 13), 7, 2.5)
+        image = checker_image(cs.LARGE_H, cs.LARGE_W, cs.CHANNELS, seed=0)
+        runner = DeviceStreamRunner("blur3", num_images=cs.LARGE_FRAMES, image=image,
+                                    device="cuda")
+        x, out = runner.stream, runner._bufs[0]
+        tiles = [*runner.tile_candidates(), *((th, cs.LARGE_W) for th in (8, 16, 32, 48)),
+                 (128, 256), (128, 512), (64, 1024), (128, 1024)]
+        res["K5 stages"] = {}
+        for name in cs.K5_STAGES:
+            times = {}
+            for tile in dict.fromkeys(tiles):
+                try:
+                    times[tile] = cs.cuda_ms(lambda: filter_stage_planar_tiled_cuda(
+                        x, name, tile=tile, out=out), reps=3)
+                except RuntimeError:
+                    continue  # a tile beyond shared memory: refused
+            best = min(times, key=times.get)
+            res["K5 stages"][name] = {"ms": times[best], "tile": best, "all": {
+                f"{t[0]}x{t[1]}": round(v, 4) for t, v in times.items()}}
+        del runner, x, out
+        torch.cuda.empty_cache()
+    return res
+
+
 def one(root: str, mode: str) -> dict:
     """One tree's run, in this process: ``root``'s own package and script;
-    ``mode`` is "sweep" (the main paths and CHAINS), "paths" or "stages"."""
+    ``mode`` is "sweep" (the main paths and CHAINS), "paths", "stages",
+    "tiled-sweep" (phase 14 and the K5 stages) or "tiled"."""
     root = os.path.abspath(root)
     sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
     os.chdir(root)
@@ -85,6 +182,9 @@ def one(root: str, mode: str) -> dict:
     res = {"root": root, "card": card}
     if mode == "stages":
         res["stages"] = stages(cs)
+        return res
+    if mode.startswith("tiled"):
+        res.update(tiled(cs, card, mode == "tiled-sweep"))
         return res
     for phase, name in (("7", "chain"), ("8", "denoise")):
         res[name] = cs.phase_main_path(card, phase, name)["ms"]
@@ -114,9 +214,9 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--one":
         print("RESULT " + json.dumps(one(sys.argv[2], sys.argv[3])), flush=True)
         return 0
-    staged = sys.argv[1:2] == ["--stages"]
-    args = sys.argv[2:] if staged else sys.argv[1:]
-    if len(args) != 1:
+    flags = [a for a in sys.argv[1:] if a.startswith("--")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    if len(args) != 1 or len(flags) > 1 or not set(flags) <= {"--stages", "--tiled"}:
         raise SystemExit(__doc__)
     other = os.path.abspath(args[0])
     if not os.path.exists(os.path.join(other, "chip_smoke.py")):
@@ -124,7 +224,11 @@ def main() -> int:
     out_dir = os.path.join(HERE, "build", "chain_ab")
     os.makedirs(out_dir, exist_ok=True)
     results, failed = [], False
-    modes = ("stages",) * 4 if staged else ("sweep", "sweep", "paths", "paths")
+    flag = flags[0] if flags else ""
+    modes, name = {
+        "--stages": (("stages",) * 4, "chain_ab_stages.jsonl"),
+        "--tiled": (("tiled-sweep", "tiled-sweep", "tiled", "tiled"), "chain_ab_tiled.jsonl"),
+    }.get(flag, (("sweep", "sweep", "paths", "paths"), "chain_ab.jsonl"))
     for root, mode in zip((other, HERE, HERE, other), modes):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, mode],
@@ -141,7 +245,6 @@ def main() -> int:
         found[0]["seconds"] = time.perf_counter() - t0
         results.append(found[0])
         print(json.dumps(found[0]), flush=True)
-    name = "chain_ab_stages.jsonl" if staged else "chain_ab.jsonl"
     with open(os.path.join(out_dir, name), "w") as f:
         f.writelines(json.dumps(r) + "\n" for r in results)
     return 1 if failed else 0

@@ -15,8 +15,9 @@ Phases, one line each:
    (``hipe_tpu_torch/csrc/tiled_stage_planar.cu``), K6 and K7
    (``hipe_tpu_torch/csrc/dct_blocks.cu``) from the checkout's sources, one
    ``nvcc`` a source, all at once; prints the ptxas report (registers,
-   spills) of K2's planar kernel and K3's four instantiations, and fails if
-   any of them spills.
+   spills, stack frame) of K2's planar kernel, K3's four instantiations,
+   K4's four (radius 1-4) and K5's seventeen (a stage kind and window
+   each), and fails if any of them spills or keeps a stack frame.
 3. Holds K1 against its plain PyTorch version on distinct random planes:
    radius 1-4, clamp and valid modes, ragged shapes (widths 1-5, 7, 40, 53,
    255, 257, 320, 2100), one full-stream pass, and every ``rows_per_block`` the
@@ -51,9 +52,11 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     entry over the full rows stream, timed beside its plain version.
 11. Holds K4 against the plain blur: radius 1-4, clamp and valid, planes of
     ``(3, 2250, 4000)`` and ragged shapes (tiles smaller than the plane in
-    both axes, H or W below 2r+1), every tile shape the autotune sweeps;
-    for the record, K4's blur3 over the 5000-image planar stream, to set
-    beside K1's (phase 6).
+    both axes, H or W below 2r+1, widths that are no multiple of 8 or 16),
+    each also with input and output at storage offset 1, every tile shape
+    the autotune sweeps, odd tiles (narrower than a run among them), a
+    full-width strip and a tile wider than the plane; for the record, K4's
+    blur3 over the 5000-image planar stream, to set beside K1's (phase 6).
 12. Holds K5 against the plain stage the same way, for every stage kind
     (sharpen, edge, point stages and a LUT, median, erode, dilate, ranks of
     size 5/7/9 and a registered one, ``pil_*`` and a registered kernel).
@@ -70,7 +73,11 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     K5's own times are taken at the chosen tile (and, for the record, at the
     swept tile that suits each best),
     and the fused route (K2 or K1 at the tallest tile that fits) is timed
-    for the record.
+    for the record. Beside them, as yardsticks the port never calls: a
+    ``Tensor.copy_`` of the 2.7 GB stream (the bandwidth a kernel that
+    reads and writes it once can reach), and ``torch.bitwise_not`` and
+    ``torch.bitwise_and`` over it, the one-call counterparts of K5's invert
+    and posterize4, beside K5's own times for those two stages.
 
 15. The codec's build: the ptxas report of K6 and K7 (``dct_blocks.cu``,
     built in phase 2 with the rest).
@@ -136,9 +143,15 @@ SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1), (1, 13, 2), (1
                 (2, 9, 2100))
 ROWS_SHAPES = ((4, 240, 320), (3, 37, 53), (2, 9, 1))  # (B, H, W pixels)
 LARGE_H, LARGE_W, LARGE_FRAMES = 2250, 4000, 100
+# Widths 4000, 1100, 700 and 3 are no multiple of 16, 1100 and 700 no
+# multiple of 8; 257 and 4001 odd. K4 and K5 also take each at storage
+# offset 1.
 TILED_SHAPES = ((3, LARGE_H, LARGE_W), (2, 131, 1100), (3, 2, 700), (2, 150, 3),
-                (1, 1, 1))
-ODD_TILE = (3, 5)  # besides the autotune's tile shapes
+                (1, 1, 1), (2, 37, 257), (1, 40, 4001))
+# Besides the autotune's tile shapes: odd tiles, two narrower than a run of
+# 8; a full-width strip (0: the plane's width) and a tile wider than any
+# plane.
+EXTRA_TILES = ((3, 5), (5, 7), (4, 4), (16, 0), (8, 8192))
 # The card's peaks (data sheet; H100 SXM, dense): device memory, and
 # operations on 8-bit integers, the type of every kernel's inputs.
 HBM_BYTES_PER_S = 3.35e12
@@ -276,6 +289,43 @@ def phase_build(card: str) -> None:
     print(f"[2 build] K2/K3 ptxas: " + "; ".join(
         f"{label} {regs} registers, {sp} B spill stores" for label, regs, sp in report)
         + f" [{card}]", flush=True)
+    tiled = tiled_ptxas(log)
+    bad = [t for t in tiled if t[2] != 0 or t[3] != 0 or t[4] != 0]
+    if len(tiled) != 21 or bad:
+        raise AssertionError(f"ptxas report of K4 and K5 missing (found {len(tiled)} of 21), "
+                             f"or spills or a stack frame: {bad or tiled}")
+    print(f"[2 build] K4/K5 ptxas (registers, spill stores, spill loads, stack frame): "
+          + "; ".join(f"{label} {regs}/{st}/{ld}/{frame}"
+                      for label, regs, st, ld, frame in tiled) + f" [{card}]", flush=True)
+
+
+# chain_stages.cuh's Op codes, for the names of K5's instantiations.
+OP_NAMES = {1: "sharpen", 2: "edge", 3: "invert", 4: "solarize", 5: "posterize", 6: "lut",
+            7: "median", 8: "erode", 9: "dilate", 10: "rank", 11: "kernel"}
+
+
+def tiled_ptxas(log: str) -> list:
+    """(label, registers, spill store bytes, spill load bytes, stack frame
+    bytes) of each K4 and K5 instantiation in the build log."""
+    import re
+
+    out = []
+    for entry in log.split("Compiling entry function")[1:]:
+        head = entry.split("\n")[0]
+        k5 = re.search(r"tiled_(?:stage|window)_u8_kernelILi(\d+)ELi(\d+)ELi(\d+)E", head)
+        k4 = re.search(r"tiled_blur_u8_kernelILi(\d)E", head)
+        if not (k4 or k5):
+            continue
+        label = (f"K4 r{k4.group(1)}" if k4 else
+                 f"K5 {OP_NAMES.get(int(k5.group(1)), k5.group(1))}{k5.group(2)}")
+
+        def num(pattern: str) -> int:
+            m = re.search(pattern, entry)
+            return int(m.group(1)) if m else -1
+
+        out.append((label, num(r"Used (\d+) registers"), num(r"(\d+) bytes spill stores"),
+                    num(r"(\d+) bytes spill loads"), num(r"(\d+) bytes stack frame")))
+    return sorted(out)
 
 
 def _chunk(x: torch.Tensor) -> int:
@@ -638,10 +688,11 @@ def phase_rows_vs_plain(card: str, phase: str, label: str, fn, counter, chains: 
 
 def phase_tiled_vs_plain(card: str, phase: str, label: str, fn, counter, stages: tuple,
                          seed: int, record: str | None = None) -> int:
-    """Hold a tiled kernel (``fn(x, name, tile=, h_pad=)``, one stage,
+    """Hold a tiled kernel (``fn(x, name, tile=, h_pad=, out=)``, one stage,
     launching through the wrapper ``counter``) against the plain stage on
-    the tiled shapes, clamp and valid, every tile shape the autotune sweeps
-    and an odd one. With ``record``, a stage name, also time it over the
+    the tiled shapes, clamp and valid, each also with input and output at
+    storage offset 1 (unaligned rows), every tile shape the autotune sweeps
+    and EXTRA_TILES. With ``record``, a stage name, also time it over the
     5000-image planar stream at every tile shape, for the record."""
     from hipe_tpu_torch.ops.blur import FILTER_RADIUS
     from hipe_tpu_torch.runtime.device_stream import TILE_COLS_CANDIDATES, TILE_ROWS_CANDIDATES
@@ -649,19 +700,23 @@ def phase_tiled_vs_plain(card: str, phase: str, label: str, fn, counter, stages:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     tiles = [(th, tw) for th in TILE_ROWS_CANDIDATES for tw in TILE_COLS_CANDIDATES]
-    tiles.append(ODD_TILE)
     before = counter.launches
-    cases = [(shape, name, h_pad) for shape in TILED_SHAPES for name in stages
-             for h_pad in (True, False) if h_pad or shape[1] > 2 * FILTER_RADIUS[name]]
+    cases = [(shape, name, h_pad, offset) for shape in TILED_SHAPES for name in stages
+             for h_pad in (True, False) for offset in (0, 1)
+             if h_pad or shape[1] > 2 * FILTER_RADIUS[name]]
     checked = 0
-    for shape, name, h_pad in cases:
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+    for shape, name, h_pad, offset in cases:
+        numel = shape[0] * shape[1] * shape[2]
+        x = torch.randint(0, 256, (numel + offset,), dtype=torch.uint8, device=dev,
+                          generator=gen)[offset:].view(shape)
         want = plain_chunked(x, (name,), h_pad)
-        for tile in tiles:
-            check_against(label, lambda: fn(x, name, tile=tile, h_pad=h_pad), want,
-                          f"planes {shape} {name} h_pad={h_pad} tile={tile}")
+        out = torch.empty(want.numel() + offset, dtype=torch.uint8,
+                          device=dev)[offset:].view(want.shape)
+        for tile in tiles + [(th, tw or shape[2]) for th, tw in EXTRA_TILES]:
+            check_against(label, lambda: fn(x, name, tile=tile, h_pad=h_pad, out=out), want,
+                          f"planes {shape} offset {offset} {name} h_pad={h_pad} tile={tile}")
             checked += 1
-        del x, want
+        del x, want, out
     grew = counter.launches - before
     if grew != checked:
         raise AssertionError(f"{label} launch counter grew by {grew}, expected {checked}")
@@ -671,14 +726,15 @@ def phase_tiled_vs_plain(card: str, phase: str, label: str, fn, counter, stages:
                           device=dev, generator=gen)
         out = torch.empty_like(x)
         times = {t: cuda_ms(lambda: fn(x, record, tile=t, out=out), reps=PASSES)
-                 for t in tiles[:-1]}
+                 for t in tiles}
         best = min(times, key=times.get)
         note = (f"; for the record, {record} over the {NUM_IMAGES}-image planar stream "
                 f"{tuple(x.shape)}: {times[best]:.4f} ms a pass at tile {best} (slowest "
                 f"{max(times.values()):.4f})")
         del x, out
     print(f"[{phase} {label} vs plain] {checked} launches over {len(cases)} (shape, stage, "
-          f"h_pad) cases, {len(tiles)} tile shapes each, max_abs_err 0{note} [{card}]",
+          f"h_pad, storage offset) cases, {len(tiles) + len(EXTRA_TILES)} tile shapes each, "
+          f"max_abs_err 0{note} [{card}]",
           flush=True)
     return 0
 
@@ -795,6 +851,16 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
             own[label] = {"ms": ms, "plain_ms": plain, "best": best,
                           "bound": bound(2 * stream.numel() * len(stages), stages,
                                          stream.numel())}
+    # Yardsticks the port never calls: a copy of the stream (the rate a
+    # kernel that reads and writes it once can reach), and the one-call
+    # counterparts of K5's invert and posterize4, beside K5's own times.
+    yard = {"copy_": cuda_ms(lambda: buf.copy_(stream), reps=PASSES),
+            "bitwise_not": cuda_ms(lambda: torch.bitwise_not(stream, out=buf), reps=PASSES),
+            "bitwise_and": cuda_ms(lambda: torch.bitwise_and(stream, 0xF0, out=buf),
+                                   reps=PASSES)}
+    for nm in ("invert", "posterize4"):
+        yard[f"K5 {nm}"] = cuda_ms(lambda: cuda_tiled.filter_stage_planar_tiled_cuda(
+            stream, nm, tile=tile, out=buf), reps=PASSES)
     # The fused route at the tallest tile that fits, for the record.
     rpb = max(r for r in range(1, LARGE_H + 1)
               if fused_shared_bytes(r, LARGE_W, names) <= SHARED_BYTES_PER_BLOCK)
@@ -816,12 +882,14 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
           f"{1 - busy[1] / busy[0]:.2%} (kernels {busy[1]:.3f} of {busy[0]:.3f} ms); "
           f"plain per-pass {plain_ms:.4f} ms; own "
           f"{ {k: {'ms': round(v['ms'], 4), 'plain_ms': round(v['plain_ms'], 4), 'best_tile': v['best'][1], 'best_ms': round(v['best'][0], 4)} for k, v in own.items()} }; "
-          f"fused route (rows_per_block {rpb}) {fused_ms:.4f} ms/pass; launches "
+          f"fused route (rows_per_block {rpb}) {fused_ms:.4f} ms/pass; yardsticks at tile "
+          f"{tile} { {k: round(v, 4) for k, v in yard.items()} } ms (copy_ "
+          f"{2 * stream.numel() / yard['copy_'] / 1e6:.1f} GB/s); launches "
           f"{ {k: n for k, n in counts.items() if n} } [{card}]", flush=True)
     del runner, stream, buf
     torch.cuda.empty_cache()
     return {"counts": counts, "ms": med["per_pass_s"] * 1e3, "plain_ms": plain_ms,
-            "chain_err": chain_err, "own": own, "fused_ms": fused_ms}
+            "chain_err": chain_err, "own": own, "fused_ms": fused_ms, "yard": yard}
 
 
 def phase_dct_build(card: str) -> None:
@@ -1199,6 +1267,11 @@ def main() -> int:
         "bound_ms": k5["bound"][0],
         "bound_by": k5["bound"][1],
         "library_ms": no_library,
+        # The stages with a one-call counterpart, over the same 100 frames.
+        "stage_ms": {nm: large_chain["yard"][f"K5 {nm}"] for nm in ("invert", "posterize4")},
+        "stage_library_ms": {"invert": large_chain["yard"]["bitwise_not"],
+                             "posterize4": large_chain["yard"]["bitwise_and"]},
+        "copy_ms": large_chain["yard"]["copy_"],
     }, {
         "name": "dequant_idct_s16",
         "route": "cuda",

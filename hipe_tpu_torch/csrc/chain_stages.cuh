@@ -1,9 +1,10 @@
-// The exact integer stages that K2 (chain_planar.cu), K3
-// (rank_chain_planar.cu) and K5 (tiled_stage_planar.cu) share, and the loop
-// that runs one over a tile of whole rows. Each stage is a functor:
-// (input buffer, plane row y, pixel column x, channel ch) -> the stage's
-// value there, clamping every row and column it reads into the plane. They
-// compute what hipe_tpu/ops/blur.py computes, to the bit.
+// What K2 (chain_planar.cu), K3 (rank_chain_planar.cu), K4 and K5
+// (tiled_*_planar.cu) share: the block size, the stage op codes and the
+// binomial taps; and the first design's stages, which K2's rows entry runs,
+// with the loop that runs one over a tile of whole rows. Each stage is a
+// functor: (input buffer, plane row y, pixel column x, channel ch) -> the
+// stage's value there, clamping every row and column it reads into the
+// plane. They compute what hipe_tpu/ops/blur.py computes, to the bit.
 
 #pragma once
 

@@ -12,8 +12,8 @@
 //
 // Stages (one program entry each, any order, up to kMaxStages): every stage
 // of K2 (gaussian 1..4, sharpen, edge, invert, solarize, posterize, LUT; the
-// same functors, chain_stages.cuh), and these (rank_stages.cuh, shared with
-// K5, tiled_stage_planar.cu):
+// same run forms, chain_lanes.cuh), and these (chain_lanes.cuh's run forms
+// and rank_stages.cuh's functors, shared with K5, tiled_stage_planar.cu):
 //   median                 median of the 3x3 window (Paeth's min/max network)
 //   erode, dilate          min, max of the 3x3 window
 //   rank (size, rank)      rank-th smallest of the size x size window,

@@ -1,9 +1,10 @@
-// The rank-family and registered-kernel stages that K3
-// (rank_chain_planar.cu) and K5 (tiled_stage_planar.cu) share: the 3x3
-// median, erode and dilate, the rank-th smallest of a size x size window,
-// and a registered convolution kernel. Functors over a Src, as in
-// chain_stages.cuh; they compute what hipe_tpu/ops/blur.py computes, to the
-// bit.
+// The rank and registered-kernel stages that K3 (rank_chain_planar.cu) and
+// K5 (tiled_stage_planar.cu) share: the rank-th smallest of a size x size
+// window, and a registered convolution kernel. Per-pixel functors over
+// chain_lanes.cuh's padded window (Win), which K3 runs through
+// lanes::PerPixel and K5 through tiled_lanes.cuh's run_pixels; they compute
+// what hipe_tpu/ops/blur.py computes, to the bit. (The 3x3 median, erode
+// and dilate are chain_lanes.cuh's run forms.)
 //
 // A size-9 window takes some 90 registers a thread, so a kernel that runs
 // these is instantiated for the widest window it holds (K3 per program, K5
@@ -14,44 +15,6 @@
 #include "chain_stages.cuh"
 
 namespace {
-
-__device__ __forceinline__ int med3(int a, int b, int c) {
-  return max(min(a, b), min(max(a, b), c));
-}
-
-// Paeth's 19-op network: sort each row triple to (lo, me, hi); the median
-// of all nine is med3(max of the los, med3 of the mes, min of the his).
-struct Median3 {
-  template <class S>
-  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
-    int v[3][3];
-    load3x3(s, y, x, ch, v);
-    int lo[3], me[3], hi[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int tl = min(v[r][0], v[r][1]);
-      const int th = max(v[r][0], v[r][1]);
-      lo[r] = min(tl, v[r][2]);
-      me[r] = max(tl, min(th, v[r][2]));
-      hi[r] = max(th, v[r][2]);
-    }
-    return med3(max(max(lo[0], lo[1]), lo[2]), med3(me[0], me[1], me[2]),
-                min(min(hi[0], hi[1]), hi[2]));
-  }
-};
-
-template <bool kMax>
-struct Extreme3 {
-  template <class S>
-  __device__ __forceinline__ int operator()(const S& s, int y, int x, int ch) const {
-    int v[3][3];
-    load3x3(s, y, x, ch, v);
-    int m = v[0][0];
-#pragma unroll
-    for (int i = 1; i < 9; ++i) m = kMax ? max(m, v[i / 3][i % 3]) : min(m, v[i / 3][i % 3]);
-    return m;
-  }
-};
 
 // The rank-th smallest of the window, by bit-serial counting: the rank-th
 // smallest is >= c iff |{v < c}| <= rank, so 8 rounds fix the 8 bits, most

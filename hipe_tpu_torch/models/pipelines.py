@@ -30,6 +30,7 @@ from hipe_tpu_torch.ops import blur as tblur
 from hipe_tpu_torch.ops import cuda_blur
 from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
 from hipe_tpu_torch.ops.cuda_chain import check_stages, filter_chain_planar_cuda
+from hipe_tpu_torch.ops.cuda_tiled import RUN as LANE_RUN
 from hipe_tpu_torch.ops.cuda_tiled import filter_chain_planar_tiled_cuda
 
 # Shared memory a thread block may take on an H100 (227 KB, opted in above
@@ -38,11 +39,6 @@ from hipe_tpu_torch.ops.cuda_tiled import filter_chain_planar_tiled_cuda
 # replaces hipe_tpu's WHOLE_PLANE_PIXEL_LIMIT, which is sized to a TPU's VMEM.
 SHARED_BYTES_PER_BLOCK = 232_448
 ROUTE_TILE_ROWS = 32
-
-
-# Output bytes a thread of K2 or K3 computes at once (kRun in
-# csrc/chain_lanes.cuh).
-LANE_RUN = 8
 
 
 def lane_pitch(w: int) -> int:

@@ -5,8 +5,11 @@ The counterpart of ``hipe_tpu.ops.pallas_blur``'s halo-tiled path for planes
 too large for the fused kernels (``gaussian_blur_planar_tiled_pallas``,
 ``filter_chain_planar_tiled_pallas``): K4 stands for ``_tiled_blur_kernel``
 and K5 for ``_tiled_point_kernel``. Both run one stage over 2-D tiles of
-``tile = (TH, TW)`` output pixels, each block staging its tile and the halo
-around it, clamped at the true plane edges in both axes.
+``tile = (TH, TW)`` output pixels, ``TW`` rounded up to a multiple of 8
+inside the kernels (a run of 8 outputs a thread). Each block stages its
+tile's padded window (``csrc/tiled_lanes.cuh``): the rows and columns the
+stage reads, clamped at the true plane edges in both axes as they are
+staged, so that no tap clamps.
 
 :func:`filter_chain_planar_tiled_cuda` runs a chain stage by stage, as
 ``hipe_tpu`` does on this path: gaussian stages on K4, every other stage on
@@ -61,15 +64,28 @@ def check_tile(tile) -> tuple[int, int]:
     return th, tw
 
 
+# Output bytes a thread of K2, K3, K4 or K5 computes at once (kRun in
+# csrc/chain_lanes.cuh); K4's and K5's tile widths are rounded up to it.
+RUN = 8
+
+
+def window_pitch(tw: int) -> int:
+    """Bytes of one row of a K4/K5 block's window for tiles ``tw`` wide
+    (``window_pitch`` in ``csrc/tiled_lanes.cuh``): the tile's columns,
+    ``tw`` rounded up to :data:`RUN`, and the 4 columns a run reads on each
+    side, each end rounded out to 16 bytes. A tile starts at a multiple of
+    8, so that is at most the rounded width, itself rounded up to 16, plus
+    32 bytes."""
+    cols = -(-tw // RUN) * RUN
+    return (cols + 8 + 15) // 16 * 16 + 16
+
+
 def shared_bytes(name: str, tile) -> int:
-    """Shared memory of one block of the stage's kernel at ``tile``: the
-    staged input with its halo, and for K4 the uint16 row sums too."""
+    """Shared memory of one block of the stage's kernel at ``tile``: ``TH``
+    output rows and the stage's ``r`` halo rows on each side, each
+    :func:`window_pitch` bytes (K4 and K5 alike)."""
     th, tw = check_tile(tile)
-    r = tblur.FILTER_RADIUS[name]
-    staged = (th + 2 * r) * (tw + 2 * r)
-    if name in tblur.GAUSSIANS:
-        return (staged + 1) // 2 * 2 + 2 * (th + 2 * r) * tw
-    return staged
+    return (th + 2 * tblur.FILTER_RADIUS[name]) * window_pitch(tw)
 
 
 def _raise_on(rc: int, what: str) -> None:

@@ -27,8 +27,13 @@ pytestmark = pytest.mark.cuda
 LUT_NAME = "torchport_cuda_tiled_dim"
 RANK_NAME = "torchport_cuda_tiled_q"
 KERNEL_NAME = "torchport_cuda_tiled_tilt"
-SHAPES = [(2, 47, 300), (1, 130, 41), (3, 2, 70), (2, 70, 3), (1, 1, 1)]
-TILES = [(1, 1), (3, 5), (8, 128), (64, 512)]
+# Widths that are no multiple of 8 or 16 (300, 41, 70, 3, 1, 257, 1000 of
+# 8 but not 16, 4001), and a 16-byte-aligned one (4000).
+SHAPES = [(2, 47, 300), (1, 130, 41), (3, 2, 70), (2, 70, 3), (1, 1, 1), (1, 19, 257),
+          (1, 9, 1000), (1, 6, 4001), (1, 5, 4000)]
+# Odd tiles (two narrower than a run of 8), the autotune's, a tile wider
+# than every plane; each test adds the full-width strip of its plane.
+TILES = [(1, 1), (3, 5), (5, 7), (4, 4), (8, 128), (64, 512), (7, 8192)]
 STAGES = ["sharpen", "edge", "invert", "solarize", "posterize2", LUT_NAME, "median",
           "erode", "dilate", "median5", RANK_NAME, "median7", "median9", "pil_emboss",
           "pil_smooth_more", KERNEL_NAME]
@@ -58,11 +63,12 @@ def test_k4_matches_plain(cuda, radius, h_pad, shape):
     x = _planes(cuda, shape, seed=radius)
     want = tblur.gaussian_blur_planar(x, radius, h_pad=h_pad)
     before = gaussian_blur_planar_tiled_cuda.launches
-    for tile in TILES:
+    tiles = TILES + [(16, shape[2])]
+    for tile in tiles:
         got = gaussian_blur_planar_tiled_cuda(x, radius, tile=tile, h_pad=h_pad)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"tile={tile}"
-    assert gaussian_blur_planar_tiled_cuda.launches == before + len(TILES)
+    assert gaussian_blur_planar_tiled_cuda.launches == before + len(tiles)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -74,11 +80,42 @@ def test_k5_matches_plain(cuda, name, h_pad, shape):
     x = _planes(cuda, shape, seed=len(name))
     want = tblur.FILTERS[name](x, h_axis=-2, w_axis=-1, h_pad=h_pad)
     before = filter_stage_planar_tiled_cuda.launches
-    for tile in TILES:
+    tiles = TILES + [(16, shape[2])]
+    for tile in tiles:
         got = filter_stage_planar_tiled_cuda(x, name, tile=tile, h_pad=h_pad)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"tile={tile}"
-    assert filter_stage_planar_tiled_cuda.launches == before + len(TILES)
+    assert filter_stage_planar_tiled_cuda.launches == before + len(tiles)
+
+
+def _offset_view(cuda, shape, seed):
+    """Planes at storage offset 1: no row starts 16- or 8-byte aligned."""
+    n = shape[0] * shape[1] * shape[2]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randint(0, 256, (n + 1,), dtype=torch.uint8, device=cuda,
+                         generator=gen)[1:].view(shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 64), (1, 20, 4000), (2, 11, 257)])
+@pytest.mark.parametrize("h_pad", [True, False])
+@pytest.mark.parametrize("name", ["gaussian3", "gaussian9", *STAGES])
+def test_tiled_kernels_at_storage_offset_1(cuda, name, h_pad, shape):
+    """Input and output views at storage offset 1: the byte staging and
+    byte stores; and each alone, against the aligned paths."""
+    x = _offset_view(cuda, shape, seed=len(name))
+    aligned = x.clone()
+    want = tblur.FILTERS[name](x, h_axis=-2, w_axis=-1, h_pad=h_pad)
+    out = torch.empty(want.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(want.shape)
+    if name in tblur.GAUSSIANS:
+        run = lambda src, **kw: gaussian_blur_planar_tiled_cuda(
+            src, tblur.FILTER_RADIUS[name], h_pad=h_pad, **kw)
+    else:
+        run = lambda src, **kw: filter_stage_planar_tiled_cuda(src, name, h_pad=h_pad, **kw)
+    for tile in ((5, 7), (16, 128), (8, shape[2])):
+        for src, dst in ((x, out), (aligned, out), (x, None)):
+            got = run(src, tile=tile, out=dst)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"tile={tile}"
 
 
 @pytest.mark.parametrize("h_pad", [True, False])

@@ -138,9 +138,17 @@ def test_oversized_chain_routes_to_tiled_kernels(monkeypatch):
 
 
 def test_shared_bytes_and_tile_checks():
-    assert cuda_tiled.shared_bytes("gaussian3", (16, 512)) == 18 * 514 + 2 * 18 * 512
-    assert cuda_tiled.shared_bytes("median9", (16, 512)) == 24 * 520
-    assert cuda_tiled.shared_bytes("invert", None) == 32 * 256
+    # TH + 2r window rows of the tile's columns and 16 bytes on each side.
+    assert cuda_tiled.shared_bytes("gaussian3", (16, 512)) == 18 * 544
+    assert cuda_tiled.shared_bytes("median9", (16, 512)) == 24 * 544
+    assert cuda_tiled.shared_bytes("invert", None) == 32 * 288
+    # A width that is no multiple of 16 takes 24 bytes of pads; TW is
+    # rounded up to a run of 8 first.
+    assert cuda_tiled.shared_bytes("edge", (5, 7)) == 7 * 32
+    assert cuda_tiled.shared_bytes("edge", (5, 8)) == 7 * 32
+    assert cuda_tiled.shared_bytes("edge", (5, 9)) == 7 * 48
+    # The full-width strip over the 4000-wide frames.
+    assert cuda_tiled.shared_bytes("gaussian3", (32, 4000)) == 34 * 4032
     with pytest.raises(ValueError, match="positive"):
         cuda_tiled.check_tile((0, 8))
 

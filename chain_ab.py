@@ -6,6 +6,7 @@ turns, on one NVIDIA GPU.
     python3 chain_ab.py build/other
     python3 chain_ab.py --stages build/other
     python3 chain_ab.py --tiled build/other
+    python3 chain_ab.py --blur build/other
 
 Runs four processes one after another, each on one tree: OTHER, THIS,
 THIS, OTHER. Each builds its tree's kernels (into that tree's ``build/``).
@@ -24,9 +25,19 @@ knobs (kernels the tiled work leaves alone: they must not move); the
 first run of each tree also times every stage of ``chip_smoke.K5_STAGES``
 over the 100 frames at every tile its autotune sweeps, at full-width
 strips and at tiles of 128 rows or 1024 columns, keeping the fastest.
-Prints one JSON line a run and writes them to
+With ``--blur`` each runs its tree's ``chip_smoke.py`` phases 6 (blur3
+over the 5000-image planar stream, K1), 13 (blur3 over the rows stream,
+K1's rows entry), 14 for blur3 (the 100 frames of 4000x2250 on the tree's
+route) and 18 (the codec's paths, the transcode among them), and times at
+fixed knobs: K1 for gaussian5/7/9 over the 5000-image stream, K1's rows
+entry at C = 1 and 4 over the rows stream, blur3 through
+``Pipeline.apply_rows`` over 100 RGB frames of 4000x2250 (a relayout to
+planar and back on the tiled route, or K1's rows entry), K4 over the
+5000-image stream at every tile its autotune sweeps, and K1, K2, K3, K6 and
+K7 as ``--tiled`` does. Prints one JSON line a run and writes them to
 ``build/chain_ab/chain_ab.jsonl`` (``chain_ab_stages.jsonl``,
-``chain_ab_tiled.jsonl``); exits non-zero if a run fails.
+``chain_ab_tiled.jsonl``, ``chain_ab_blur.jsonl``); exits non-zero if a run
+fails.
 """
 
 from __future__ import annotations
@@ -163,10 +174,66 @@ def tiled(cs, card: str, sweep: bool) -> dict:
     return res
 
 
+def blur(cs, card: str) -> dict:
+    """The blur paths of the tree's chip_smoke.py (phases 6, 13, 14 for
+    blur3, 18) and K1, K4 and the other kernels at fixed knobs."""
+    import torch
+
+    from hipe_tpu_torch.models.pipelines import get
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
+    from hipe_tpu_torch.ops.cuda_tiled import gaussian_blur_planar_tiled_cuda
+    from hipe_tpu_torch.runtime.device_stream import (TILE_COLS_CANDIDATES,
+                                                      TILE_ROWS_CANDIDATES)
+
+    res = {}
+    r = cs.phase_main_path(card, "6", "blur3")
+    res["blur3"] = {"ms": r["ms"], "idle": r["idle"], "copy_ms": r.get("copy_ms")}
+    res["rows blur3"] = cs.phase_rows_main_path(card)["ms"]
+    r = cs.phase_large_frames(card, "blur3")
+    res["large blur3"] = {"ms": r["ms"], "own": {
+        k: {"ms": v["ms"], "best_ms": v["best"][0], "best_at": v["best"][1]}
+        for k, v in r["own"].items()}}
+    codec = cs.phase_codec_main_paths(card)
+    res["codec"] = {name: p["ms"] for name, p in codec["paths"].items()}
+    res["codec K1 rows"] = codec["split"]["K1 rows"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, (cs.NUM_IMAGES * cs.CHANNELS, cs.SIDE, cs.SIDE),
+                      dtype=torch.uint8, device="cuda", generator=gen)
+    out = torch.empty_like(x)
+    fixed = {}
+    for radius in (2, 3, 4):
+        for rpb in (32, 128):
+            fixed[f"K1 gaussian{2 * radius + 1}@{rpb}"] = cs.cuda_ms(
+                lambda: gaussian_blur_planar_cuda(x, radius, rows_per_block=rpb, out=out),
+                reps=cs.PASSES)
+    rows, rows_out = x.view(cs.NUM_IMAGES, cs.SIDE, -1), out.view(cs.NUM_IMAGES, cs.SIDE, -1)
+    for c in (1, 3, 4):
+        fixed[f"K1 rows C{c}@32"] = cs.cuda_ms(lambda: gaussian_blur_rows_cuda(
+            rows, c, 1, rows_per_block=32, out=rows_out), reps=cs.PASSES)
+    k4 = {f"{th}x{tw}": cs.cuda_ms(lambda: gaussian_blur_planar_tiled_cuda(
+        x, 1, tile=(th, tw), out=out), reps=cs.PASSES)
+        for th in TILE_ROWS_CANDIDATES for tw in TILE_COLS_CANDIDATES}
+    best = min(k4, key=k4.get)
+    fixed["K4 blur3 best"] = {"ms": k4[best], "tile": best}
+    del x, out, rows, rows_out
+    torch.cuda.empty_cache()
+    frames = torch.randint(0, 256, (cs.LARGE_FRAMES, cs.LARGE_H, cs.LARGE_W * cs.CHANNELS),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    frames_out = torch.empty_like(frames)
+    pipe = get("blur3")
+    fixed["large rows blur3 apply_rows"] = cs.cuda_ms(
+        lambda: pipe.apply_rows(frames, cs.CHANNELS, out=frames_out), reps=3)
+    del frames, frames_out
+    torch.cuda.empty_cache()
+    res["fixed"] = fixed
+    res["fixed knobs"] = fixed_knobs(cs)
+    return res
+
+
 def one(root: str, mode: str) -> dict:
     """One tree's run, in this process: ``root``'s own package and script;
     ``mode`` is "sweep" (the main paths and CHAINS), "paths", "stages",
-    "tiled-sweep" (phase 14 and the K5 stages) or "tiled"."""
+    "tiled-sweep" (phase 14 and the K5 stages), "tiled" or "blur"."""
     root = os.path.abspath(root)
     sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
     os.chdir(root)
@@ -185,6 +252,9 @@ def one(root: str, mode: str) -> dict:
         return res
     if mode.startswith("tiled"):
         res.update(tiled(cs, card, mode == "tiled-sweep"))
+        return res
+    if mode == "blur":
+        res.update(blur(cs, card))
         return res
     for phase, name in (("7", "chain"), ("8", "denoise")):
         res[name] = cs.phase_main_path(card, phase, name)["ms"]
@@ -216,7 +286,7 @@ def main() -> int:
         return 0
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    if len(args) != 1 or len(flags) > 1 or not set(flags) <= {"--stages", "--tiled"}:
+    if len(args) != 1 or len(flags) > 1 or not set(flags) <= {"--stages", "--tiled", "--blur"}:
         raise SystemExit(__doc__)
     other = os.path.abspath(args[0])
     if not os.path.exists(os.path.join(other, "chip_smoke.py")):
@@ -228,6 +298,7 @@ def main() -> int:
     modes, name = {
         "--stages": (("stages",) * 4, "chain_ab_stages.jsonl"),
         "--tiled": (("tiled-sweep", "tiled-sweep", "tiled", "tiled"), "chain_ab_tiled.jsonl"),
+        "--blur": (("blur",) * 4, "chain_ab_blur.jsonl"),
     }.get(flag, (("sweep", "sweep", "paths", "paths"), "chain_ab.jsonl"))
     for root, mode in zip((other, HERE, HERE, other), modes):
         t0 = time.perf_counter()

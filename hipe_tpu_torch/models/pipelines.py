@@ -13,10 +13,12 @@ Single gaussians (``blur3/5/7/9``) run K1, every other chain of band and
 point stages runs the fused chain kernel K2, and every chain with a rank or
 registered-kernel stage runs K3, as ``hipe_tpu`` routes them to its blur
 kernel, ``_chain_mxu_kernel`` and ``_chain_kernel``. A plane too wide for
-those kernels' shared memory (:func:`routes_tiled`, e.g. the reference's
+K2's or K3's shared memory (:func:`routes_tiled`, e.g. the reference's
 4000x2250 frames) runs stage by stage on the tiled kernels K4 (gaussian)
 and K5 (every other stage), as ``hipe_tpu`` sends oversized planes to
-``_tiled_blur_kernel`` and ``_tiled_point_kernel``. The global-statistics
+``_tiled_blur_kernel`` and ``_tiled_point_kernel``. K1 keeps its row sums
+in registers and takes planes of any width, so a single gaussian stays on
+it (at 4000x2250 it runs faster than K4; PERF.md). The global-statistics
 pipelines of ``hipe_tpu`` are listed in ROADMAP.md as still to be ported.
 """
 
@@ -50,13 +52,14 @@ def lane_pitch(w: int) -> int:
 
 def fused_shared_bytes(rows: int, w: int, names) -> int:
     """Shared memory of one block of the fused kernel that takes ``names``
-    for a tile of ``rows`` planar rows of ``w`` bytes and its halo: K1's
-    uint16 row sums for a single gaussian; else K2's and K3's two padded
-    uint8 buffers of :func:`lane_pitch` bytes a row and 256 bytes for each
-    distinct LUT stage."""
+    for a tile of ``rows`` planar rows of ``w`` bytes and its halo: none
+    for a single gaussian (K1 keeps its row sums in registers,
+    :func:`hipe_tpu_torch.ops.cuda_blur.shared_bytes`); else K2's and K3's
+    two padded uint8 buffers of :func:`lane_pitch` bytes a row and 256
+    bytes for each distinct LUT stage."""
     r = tblur.chain_radius(names)
     if len(names) == 1 and names[0] in tblur.GAUSSIANS:
-        return (rows + 2 * r) * w * 2
+        return cuda_blur.shared_bytes(rows, w, r, True, rows)
     luts = len({nm for nm in names if nm in tblur.LUT_STAGES})
     return 2 * (rows + 2 * r) * lane_pitch(w) + 256 * luts
 
@@ -122,8 +125,9 @@ class Pipeline:
     def rows_entry_fits(self, h: int, w: int, channels: int, *, h_pad: bool = True,
                         rows_per_block: int | None = None) -> bool:
         """Whether K1's rows entry takes (h, w*channels) rows of this
-        pipeline: a single gaussian whose tile fits shared memory (the
-        counterpart of ``hipe_tpu``'s ``nhwc_pallas_eligible``)."""
+        pipeline: a single gaussian whose band fits shared memory (the
+        counterpart of ``hipe_tpu``'s ``nhwc_pallas_eligible``). K1 takes
+        none, so every single gaussian does."""
         return self.single_gaussian and cuda_blur.shared_bytes(
             h, w * channels, self.radius, h_pad, rows_per_block) <= SHARED_BYTES_PER_BLOCK
 
@@ -133,10 +137,10 @@ class Pipeline:
         """Interleaved rows ``(B, H, W*C)`` uint8, ``hipe_tpu``'s device
         layout for channels-last data.
 
-        A single gaussian whose tile fits shared memory runs K1's rows entry
-        with no relayout; every other chain, and oversized rows, relayout on
-        the card to planar, run :meth:`apply_planar` (K1, K2, K3 or K4/K5)
-        and relayout back. On the CPU the path is the plain rows chain.
+        A single gaussian runs K1's rows entry with no relayout
+        (:meth:`rows_entry_fits`); every other chain relayouts on the card to
+        planar, runs :meth:`apply_planar` (K2, K3 or K4/K5) and relayouts
+        back. On the CPU the path is the plain rows chain.
         ``h_pad=False`` returns the valid interior ``(B, H - 2R, W*C)``.
         """
         b, h, lane = rows.shape

@@ -26,7 +26,7 @@ from hipe_tpu_torch.ops import _build
 from hipe_tpu_torch.ops.blur import GAUSSIANS, gaussian_blur_planar, gaussian_blur_rows
 from hipe_tpu_torch.ops.cuda_chain import check_planar_call
 
-# Output rows per thread block when the caller names none; the runner's
+# Output rows of a warp's band when the caller names none; the runner's
 # autotune sweeps the alternatives.
 DEFAULT_ROWS_PER_BLOCK = 16
 
@@ -51,10 +51,10 @@ def out_rows(h: int, radius: int, h_pad: bool) -> int:
 
 def shared_bytes(h: int, lanes: int, radius: int, h_pad: bool,
                  rows_per_block: int | None) -> int:
-    """Shared memory of one K1 block: uint16 row sums of the tile's rows and
-    its 2r halo rows, ``lanes`` bytes a row (W, or W*C for rows)."""
-    rpb = DEFAULT_ROWS_PER_BLOCK if rows_per_block is None else int(rows_per_block)
-    return (min(rpb, out_rows(h, radius, h_pad)) + 2 * radius) * lanes * 2
+    """Shared memory of one K1 block: none. A warp walks its band of rows
+    with the row sums in registers (``csrc/blur_planar.cu``), so K1 takes
+    planes and rows of any width, at any ``rows_per_block``."""
+    return 0
 
 
 def _check_call(x: torch.Tensor, radius: int, h_pad: bool,
@@ -87,8 +87,8 @@ def gaussian_blur_planar_cuda(
     W clamps at its edges; H clamps with ``h_pad`` (output ``(N, H, W)``)
     and is valid-only without it (output ``(N, H - 2r, W)``). ``out``, if
     given, receives the result and must not share memory with ``x``.
-    ``rows_per_block`` is K1's launch knob (output rows per thread block;
-    at least the plane's rows means one block per plane).
+    ``rows_per_block`` is K1's launch knob (output rows of the band a warp
+    walks; at least the plane's rows means one band per plane).
     """
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise TypeError(
@@ -128,8 +128,7 @@ def gaussian_blur_rows_cuda(
     of ``channels`` interleaved bytes, and the W edge clamps a whole pixel.
     H clamps with ``h_pad`` (output ``(B, H, W*C)``) and is valid-only
     without it (``(B, H - 2r, W*C)``). ``out`` and ``rows_per_block`` as in
-    :func:`gaussian_blur_planar_cuda`; a tile beyond shared memory
-    (:func:`shared_bytes`) is refused with an error.
+    :func:`gaussian_blur_planar_cuda`.
     """
     ho, rpb = _check_call(rows, radius, h_pad, rows_per_block, out)
     b, h, lanes = rows.shape

@@ -5,9 +5,9 @@ images stays in device memory as planar ``(N*C, H, W)`` uint8; each pass
 filters the whole stream with one launch of the pipeline's kernel (K1 for a
 single gaussian, the fused chain kernel K2 for every other band and point
 chain, K3 for a chain with a rank or registered-kernel stage), and only
-checksums and the first image return to the host. Frames too wide for those
-kernels (``Pipeline.routes_tiled``, e.g. 4000x2250) run one launch a stage
-of the tiled kernels K4 and K5 instead.
+checksums and the first image return to the host. Frames too wide for K2
+or K3 (``Pipeline.routes_tiled``, e.g. 4000x2250) run one launch a stage of
+the tiled kernels K4 and K5 instead; K1 takes frames of any width.
 
 Chained passes feed every output into the next pass, alternating between
 two scratch buffers (the kernels are out-of-place: a tile's halo rows

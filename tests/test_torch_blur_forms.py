@@ -1,0 +1,327 @@
+"""K1's register forms, restated in plain PyTorch, against hipe_tpu's blur
+kernels, the port's plain blur and the NumPy oracle, exactly.
+
+``hipe_tpu_torch/csrc/blur_planar.cu`` computes the binomial blur in a form
+other than the definition. A warp owns a band of ``rows_per_block`` output
+rows and a segment of 32 runs of 8 bytes across them, one run a lane, and
+walks down the band. A lane's window is its run and the words of its
+neighbours' runs beside it: by shuffle from the lanes beside it, loaded by
+the segment's outer lanes, and at the row's first and last run made from the
+run's own edge pixel (aligned rows) or loaded as clamped bytes (the rest).
+Each window row is summed across once, two outputs a 32-bit word in 16-bit
+lanes, from byte pairs at offsets ``k*C``; the last ``2r+1`` row sums rotate
+through ``2r+1`` slots and are summed down in 16-bit lanes (r <= 2) or
+32-bit lanes (r >= 3), then ``>> 4r``. The tail run of a row is masked.
+Where ``r*C`` bytes do not fit one neighbour run, or C is not 1-4, a run
+form sums each byte's taps from clamped loads instead.
+
+Here each piece runs as the kernel runs it, over every lane and band at
+once, and the result must be hipe_tpu's integers (its Pallas kernels in
+interpret mode, as its own tests run them), the port's plain blur's and the
+oracle's, bit for bit.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hipe_tpu.ops import blur as jblur
+from hipe_tpu.ops import pallas_blur
+from hipe_tpu_torch.models import pipelines as tplib
+from hipe_tpu_torch.ops import blur as tblur
+from hipe_tpu_torch.ops import cuda_blur
+from hipe_tpu_torch.ops import reference as tref
+
+RUN = 8  # bytes a lane owns: lanes::kRun
+WARP = 32  # runs a segment
+OUT_PAIRS = (0, 1, 4, 5)  # first column of output pair k: columns (o, o + 2)
+
+
+def _rows(b, h, w, c, seed):
+    return np.random.default_rng(seed).integers(0, 256, (b, h, w * c), dtype=np.uint8)
+
+
+def _pairs_form(r: int, c: int) -> bool:
+    """Whether K1 takes the pairs form: C known at compile time (1-4) and
+    r*C bytes a side within one neighbour run."""
+    return 1 <= c <= 4 and r * c <= RUN
+
+
+def _clamp_byte(p: torch.Tensor, length: int, c: int) -> torch.Tensor:
+    """blur_planar.cu:clamp_byte: byte p of a row, clamped a whole pixel."""
+    return torch.where(p < 0, p % c, torch.where(p >= length, length - c + (p - length) % c, p))
+
+
+def _map(length: int):
+    """The lanes of a row: each run's first byte, lane in its segment, and
+    whether it is the segment's first lane and its last lane holding a run."""
+    runs = -(-length // RUN)
+    run = torch.arange(runs)
+    lane = run % WARP
+    return RUN * run, lane == 0, (lane == WARP - 1) | (run == runs - 1)
+
+
+def _window(line: torch.Tensor, c: int, r: int, vec: bool) -> torch.Tensor:
+    """(B, runs, 8 + 8*side) int64: each lane's window bytes q = -4 side ..
+    8 + 4 side around its run, assembled as the pairs form assembles it."""
+    length = line.shape[-1]
+    side = (r * c + 3) // 4
+    x, left, right = _map(length)
+    k8, ks = torch.arange(RUN), torch.arange(4 * side)
+    own = line[:, _clamp_byte(x[:, None] + k8, length, c)]
+    up = torch.roll(own, 1, dims=1)[..., RUN - 4 * side:]  # __shfl_up_sync
+    down = torch.roll(own, -1, dims=1)[..., :4 * side]  # __shfl_down_sync
+    if vec:
+        # Aligned rows: the outer lanes load the words beside their run; at
+        # the row's ends they make them from the run's own edge pixel.
+        loaded_l = line[:, (x[:, None] - 4 * side + ks).clamp(0, length - 1)]
+        loaded_r = line[:, (x[:, None] + RUN + ks).clamp(0, length - 1)]
+        before = own[..., (ks - 4 * side) % c]  # before_row: channel q mod C
+        after = own[..., RUN - c + ks % c]  # after_row: the last pixel's
+        lft = torch.where((left & (x > 0))[:, None], loaded_l,
+                          torch.where(left[:, None], before, up))
+        rgt = torch.where((right & (x + RUN < length))[:, None], loaded_r,
+                          torch.where(right[:, None], after, down))
+    else:
+        # Unaligned rows: the outer lanes load their neighbour run as
+        # clamped bytes.
+        loaded_l = line[:, _clamp_byte(x[:, None] - RUN + k8, length, c)][..., RUN - 4 * side:]
+        loaded_r = line[:, _clamp_byte(x[:, None] + RUN + k8, length, c)][..., :4 * side]
+        lft = torch.where(left[:, None], loaded_l, up)
+        rgt = torch.where(right[:, None], loaded_r, down)
+    return torch.cat([lft, own, rgt], dim=-1).long()
+
+
+def _pair(win: torch.Tensor, q: int, side: int) -> torch.Tensor:
+    """Window bytes q and q + 2 as one word of two 16-bit lanes."""
+    return win[..., q + 4 * side] | win[..., q + 4 * side + 2] << 16
+
+
+def _row_sum(line: torch.Tensor, c: int, r: int, vec: bool) -> torch.Tensor:
+    """(B, runs, 4) int64: each run's row sum, output pairs in 16-bit lanes."""
+    taps = [math.comb(2 * r, j) for j in range(2 * r + 1)]
+    if _pairs_form(r, c):
+        side = (r * c + 3) // 4
+        win = _window(line, c, r, vec)
+        sums = [sum(t * _pair(win, o + (j - r) * c, side) for j, t in enumerate(taps))
+                for o in OUT_PAIRS]
+    else:
+        # The run form: each byte's taps loaded one by one, a pixel clamped.
+        length = line.shape[-1]
+        w = length // c
+        x, _, _ = _map(length)
+        b = (x[:, None] + torch.arange(RUN)).clamp(max=length - 1 + RUN)
+        px, ch = b // c, b % c
+        v = sum(t * line[:, (px + j - r).clamp(0, w - 1) * c + ch].long()
+                for j, t in enumerate(taps))
+        sums = [v[..., o] | v[..., o + 2] << 16 for o in OUT_PAIRS]
+    out = torch.stack(sums, dim=-1)
+    assert int((out & 0xFFFF).max()) <= 255 * 4 ** r and int((out >> 16).max()) <= 255 * 4 ** r
+    return out
+
+
+def _sum_down(ring: list, p: int, r: int) -> torch.Tensor:
+    """(B, runs, 8) uint8: output row p's runs from the ring's slots
+    (p + j) % N, j = 0 .. 2r: sum_down in 16-bit or 32-bit lanes, >> 4r,
+    and pack_pairs's byte order."""
+    n = 2 * r + 1
+    taps = [math.comb(2 * r, j) for j in range(n)]
+    if r <= 2:
+        acc = sum(t * ring[(p + j) % n] for j, t in enumerate(taps))
+        lo, hi = acc & 0xFFFF, acc >> 16
+        assert int(lo.max()) < 1 << 16  # no carry between the lanes
+        word = acc >> (4 * r)
+        o_lo, o_hi = word & 0xFF, (word >> 16) & 0xFF
+        assert torch.equal(o_lo, lo >> (4 * r)) and torch.equal(o_hi, hi >> (4 * r))
+    else:
+        lo = sum(t * (ring[(p + j) % n] & 0xFFFF) for j, t in enumerate(taps))
+        hi = sum(t * (ring[(p + j) % n] >> 16) for j, t in enumerate(taps))
+        o_lo, o_hi = lo >> (4 * r), hi >> (4 * r)
+    assert int(o_lo.max()) <= 255 and int(o_hi.max()) <= 255
+    # pack_pairs: bytes (o0.lo, o1.lo, o0.hi, o1.hi, o2.lo, o3.lo, o2.hi, o3.hi)
+    order = [(0, 0), (1, 0), (0, 1), (1, 1), (2, 0), (3, 0), (2, 1), (3, 1)]
+    return torch.stack([(o_lo, o_hi)[half][..., k] for k, half in order], dim=-1).to(torch.uint8)
+
+
+def k1_form(rows: torch.Tensor, c: int, r: int, *, h_pad: bool = True,
+            rows_per_block: int = 16, vec: bool | None = None) -> torch.Tensor:
+    """K1 over rows (B, H, W*C) (planar planes are C = 1) as the kernel
+    computes it: each band walked down, each window row loaded once and
+    summed across into slot i % N, each output row summed down from the
+    slots, each run stored with its tail masked."""
+    bsz, h, length = rows.shape
+    vec = length % RUN == 0 if vec is None else vec
+    ho = h if h_pad else h - 2 * r
+    row_off = -r if h_pad else 0
+    n = 2 * r + 1
+    xs, _, _ = _map(length)
+    keep = (length - xs).clamp(max=RUN)
+    out = torch.full((bsz, ho, xs.numel() * RUN + RUN), 0xAB, dtype=torch.uint8)
+    rpb = min(rows_per_block, ho)
+    for y0 in range(0, ho, rpb):
+        def row_sum(i, y0=y0):
+            return _row_sum(rows[:, min(max(y0 + row_off + i, 0), h - 1)], c, r, vec)
+
+        ring = [None] * n
+        for i in range(2 * r):
+            ring[i % n] = row_sum(i)
+        for p in range(min(rpb, ho - y0)):
+            ring[(p + 2 * r) % n] = row_sum(p + 2 * r)
+            run = _sum_down(ring, p, r)
+            for k in range(RUN):
+                m = keep > k  # the masked tail
+                out[:, y0 + p, (xs + k)[m]] = run[:, m, k]
+    assert torch.all(out[..., length:] == 0xAB)  # nothing stored past the row
+    return out[..., :length]
+
+
+def _blur(x: np.ndarray, c: int, r: int, **kw) -> np.ndarray:
+    return k1_form(torch.from_numpy(x), c, r, **kw).numpy()
+
+
+def _hipe_tpu_rows(x: np.ndarray, c: int, r: int, h_pad: bool) -> np.ndarray:
+    """hipe_tpu's rows blur: gaussian_blur_rows_pallas in interpret mode
+    where it takes the geometry (H a multiple of 8, W*C <= 2048), else its
+    XLA rows op."""
+    _, h, lane = x.shape
+    if pallas_blur.nhwc_pallas_eligible(h, lane // c, c):
+        return np.asarray(pallas_blur.gaussian_blur_rows_pallas(
+            jnp.asarray(x), c, r, h_pad=h_pad, interpret=True))
+    return np.asarray(jblur.ROWS_FILTERS[f"gaussian{2 * r + 1}"](jnp.asarray(x), c, h_pad=h_pad))
+
+
+def _plain_rows(x: np.ndarray, c: int, r: int, h_pad: bool) -> np.ndarray:
+    return tblur.gaussian_blur_rows(torch.from_numpy(x), c, r, h_pad=h_pad).numpy()
+
+
+@pytest.mark.parametrize("length", [1, 7, 8, 40, 255, 256, 257, 768, 1100])
+def test_thread_map_covers_each_byte_once_in_segments_of_32_runs(length):
+    x, left, right = _map(length)
+    runs = x.numel()
+    assert runs == -(-length // RUN)
+    covered = (x[:, None] + torch.arange(RUN)).flatten()
+    assert torch.equal(covered[covered < length], torch.arange(length))
+    # The launch's warp units: (plane, band, segment); lanes past the last
+    # run of a segment hold none.
+    segs = -(-runs // WARP)
+    assert int(left.sum()) == segs and int(right.sum()) == segs
+    assert bool(right[-1]) and bool(left[0])
+    for ho, rpb in ((1, 16), (37, 8), (256, 64), (256, 256)):
+        tiles = -(-ho // min(rpb, ho))
+        bands = [min(rpb, ho - y0) for y0 in range(0, ho, min(rpb, ho))]
+        assert len(bands) == tiles and sum(bands) == ho
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("r,c", [(r, c) for r in (1, 2, 3, 4) for c in (1, 2, 3, 4)
+                                 if _pairs_form(r, c)])
+def test_neighbour_exchange_is_the_clamped_row(r, c, vec):
+    """Each lane's window (shuffles, the outer lanes' loads, the edge
+    pixel's bytes at the row's ends) is the row clamped a pixel at a time."""
+    side = (r * c + 3) // 4
+    for w in (1, 2, 3, 5, 8, 64, 85, 257):
+        line = torch.from_numpy(_rows(2, 1, w, c, seed=w + c)[:, 0])
+        length = line.shape[-1]
+        if vec and length % RUN:
+            continue
+        x, _, _ = _map(length)
+        win = _window(line, c, r, vec)
+        q = x[:, None] + torch.arange(-4 * side, RUN + 4 * side)
+        want = line[:, _clamp_byte(q, length, c)].long()
+        np.testing.assert_array_equal(win.numpy(), want.numpy(), err_msg=f"w={w}")
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_lanes_hold_their_sums(r):
+    """A row sum is at most 255 * 4^r <= 65280, a 16-bit lane; summed down
+    it stays within one up to r = 2 (65280) and not beyond (r = 3: 1044480),
+    which is why gaussian7 and gaussian9 sum down in 32-bit lanes."""
+    assert 255 * 4 ** r < 1 << 16
+    assert (255 * 4 ** (2 * r) < 1 << 16) == (r <= 2)
+    x = np.full((1, 2 * r + 3, 2 * RUN), 255, dtype=np.uint8)
+    np.testing.assert_array_equal(_blur(x, 1, r), x)  # asserts the lanes inside
+
+
+@pytest.mark.parametrize("h_pad", [True, False])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 8, 9])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_form_matches_hipe_tpu_rows_kernel(r, c, h_pad):
+    """Widths 1-5, 7, 255 and 257 pixels of C channels, against
+    gaussian_blur_rows_pallas in interpret mode (its XLA rows op where the
+    kernel does not take W*C) and the plain rows blur; ragged bands
+    (rows_per_block 5)."""
+    h = 16
+    for w in (1, 2, 3, 4, 5, 7, 255, 257):
+        x = _rows(2, h, w, c, seed=100 * r + 10 * c + w)
+        want = _hipe_tpu_rows(x, c, r, h_pad)
+        np.testing.assert_array_equal(_plain_rows(x, c, r, h_pad), want)
+        got = _blur(x, c, r, h_pad=h_pad, rows_per_block=5)
+        np.testing.assert_array_equal(got, want, err_msg=f"w={w}")
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_form_matches_rows_kernel_at_768_pixels_and_unaligned(r, c):
+    """768 pixels a row (several segments), aligned and as the unaligned
+    path loads it, against the rows kernel and the NumPy oracle."""
+    x = _rows(1, 8, 768, c, seed=r + c)
+    want = _hipe_tpu_rows(x, c, r, True)
+    for vec in (True, False):
+        np.testing.assert_array_equal(_blur(x, c, r, rows_per_block=3, vec=vec), want)
+    oracle = tref.gaussian_blur_int_oracle(x[0].reshape(8, 768, c), r)
+    np.testing.assert_array_equal(want[0], oracle.reshape(8, 768 * c))
+
+
+@pytest.mark.parametrize("c", [1, 3, 9])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_short_planes_clamp_every_window_row(r, c):
+    """H below 2r+1 in clamp mode: every window row clamps into the plane.
+    hipe_tpu's rows kernel takes no such H (a multiple of 8 only), so the
+    form is held against the plain rows blur, which test_torch_rows.py
+    holds against hipe_tpu, and against the NumPy oracle."""
+    for h in range(1, 2 * r + 1):
+        x = _rows(2, h, 13, c, seed=h + r)
+        want = _plain_rows(x, c, r, True)
+        oracle = np.stack([tref.gaussian_blur_int_oracle(img.reshape(h, 13, c), r)
+                           for img in x]).reshape(x.shape)
+        np.testing.assert_array_equal(want, oracle)
+        np.testing.assert_array_equal(_blur(x, c, r, rows_per_block=1), want)
+        np.testing.assert_array_equal(_blur(x, c, r, rows_per_block=16), want)
+
+
+@pytest.mark.parametrize("h_pad", [True, False])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_planar_form_matches_blur_kernels(r, h_pad):
+    """Planar planes are rows of C = 1: against _blur_mxu_kernel and
+    _blur_kernel (gaussian_blur_planar_pallas, path mxu and vpu, interpret
+    mode), the plain planar blur and the oracle; widths 1-5, 7, 53, 257."""
+    for w in (1, 2, 3, 4, 5, 7, 53, 257):
+        x = _rows(3, 16, w, 1, seed=w * r)
+        got = _blur(x, 1, r, h_pad=h_pad, rows_per_block=4)
+        for path in ("mxu", "vpu"):
+            want = np.asarray(pallas_blur.gaussian_blur_planar_pallas(
+                jnp.asarray(x), r, h_pad=h_pad, path=path, interpret=True))
+            np.testing.assert_array_equal(got, want, err_msg=f"w={w} {path}")
+        plain = tblur.gaussian_blur_planar(torch.from_numpy(x), r, h_pad=h_pad).numpy()
+        np.testing.assert_array_equal(got, plain)
+        oracle = np.stack([tref.gaussian_blur_int_oracle(p, r) for p in x])
+        np.testing.assert_array_equal(got, oracle if h_pad else oracle[:, r:x.shape[1] - r])
+
+
+def test_k1_takes_no_shared_memory_so_no_width_routes_away():
+    """The row sums live in registers: shared_bytes and the router's mirror
+    are 0, so a single gaussian stays on K1 (and its rows entry) at any
+    width; K2's and K3's padded buffers still route wide chains tiled."""
+    for h, lanes, r in ((256, 256, 1), (256, 768, 1), (2250, 12000, 4), (1, 1, 2)):
+        for rpb in (None, 1, 16, 256, 2250):
+            assert cuda_blur.shared_bytes(h, lanes, r, True, rpb) == 0
+    for name in tblur.GAUSSIANS:
+        assert tplib.fused_shared_bytes(32, 4000, (name,)) == 0
+        assert not tplib.routes_tiled(2250, 4000, (name,))
+    blur3 = tplib.get("blur3")
+    assert blur3.rows_entry_fits(2250, 4000, 3, rows_per_block=2250)
+    assert tplib.routes_tiled(2250, 4000, ("gaussian3", "sharpen", "edge"))

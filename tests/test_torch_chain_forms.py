@@ -364,12 +364,14 @@ def test_fused_shared_bytes_describes_the_padded_layout():
     tblur.register_lut_filter(name, tblur.brightness_lut(0.7))
     assert (tplib.fused_shared_bytes(32, 256, (name, "gaussian3", name))
             == 2 * (32 + 2) * 288 + 256)
-    # A single gaussian is K1's: its uint16 row sums, no pads.
-    assert tplib.fused_shared_bytes(32, 256, ("gaussian3",)) == 34 * 256 * 2
+    # A single gaussian is K1's, which keeps its row sums in registers.
+    assert tplib.fused_shared_bytes(32, 256, ("gaussian3",)) == 0
 
 
 @pytest.mark.parametrize("name", sorted(tplib.PIPELINES))
 def test_stream_planes_stay_fused_and_large_frames_go_tiled(name):
     pipe = tplib.PIPELINES[name]
     assert not pipe.routes_tiled(256, 256)
-    assert pipe.routes_tiled(2250, 4000)
+    # K1 has no width limit, so a single gaussian stays on it; every other
+    # chain's 4000x2250 frames go tiled.
+    assert pipe.routes_tiled(2250, 4000) == (not pipe.single_gaussian)

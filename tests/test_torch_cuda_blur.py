@@ -24,28 +24,48 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1)])
+# Widths 255, 257 and 768 span several 32-run segments of a warp; 53 and 7
+# are no multiple of a run.
+@pytest.mark.parametrize("shape", [(6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1),
+                                   (2, 20, 255), (2, 21, 257), (2, 19, 768)])
 @pytest.mark.parametrize("h_pad", [True, False])
 @pytest.mark.parametrize("radius", [1, 2, 3, 4])
-def test_k1_matches_plain(cuda, radius, h_pad, shape):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k1_matches_plain(cuda, offset, radius, h_pad, shape):
+    """Every band height; at storage offset 1 the input and output rows are
+    unaligned, so K1 takes its run form."""
     if not h_pad and shape[1] <= 2 * radius:
         pytest.skip("valid mode needs H > 2r")
     gen = torch.Generator(device=cuda).manual_seed(radius)
-    x = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda, generator=gen)
+    numel = shape[0] * shape[1] * shape[2]
+    x = torch.randint(0, 256, (numel + offset,), dtype=torch.uint8, device=cuda,
+                      generator=gen)[offset:].view(shape)
     want = gaussian_blur_planar(x, radius, h_pad=h_pad)
     ho = out_rows(shape[1], radius, h_pad)
+    out = torch.empty(want.numel() + offset, dtype=torch.uint8, device=cuda)[offset:]
+    out = out.view(want.shape)
     before = gaussian_blur_planar_cuda.launches
-    for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, ho}):
-        got = gaussian_blur_planar_cuda(x, radius, h_pad=h_pad, rows_per_block=rpb)
+    for rpb in sorted({1, *ROWS_PER_BLOCK_CANDIDATES, ho}):
+        got = gaussian_blur_planar_cuda(x, radius, h_pad=h_pad, rows_per_block=rpb, out=out)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"rows_per_block={rpb}"
     assert gaussian_blur_planar_cuda.launches > before
 
 
 def test_k1_refuses_too_much_shared_memory(cuda):
-    # One block per 256-row plane of width 512 needs 258*512*2 B > 227 KB.
+    """K1 takes no shared memory, so a whole-plane band of a 512-wide plane
+    (258*512*2 B of row sums in the first design, over 227 KB) launches; what
+    the kernel entry refuses (a radius outside 1-4, no rows a band) it
+    refuses without a launch and leaves no error behind."""
+    from hipe_tpu_torch.ops.cuda_blur import _kernel_lib
+
     x = torch.zeros((1, 256, 512), dtype=torch.uint8, device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        gaussian_blur_planar_cuda(x, 1, rows_per_block=256)
-    # The refused launch leaves no error behind for the next one.
+    assert torch.equal(gaussian_blur_planar_cuda(x, 1, rows_per_block=256), x)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _kernel_lib()
+    for radius, rpb in ((5, 16), (1, 0)):
+        rc = lib.hipe_blur_planar_u8(x.data_ptr(), out.data_ptr(), 1, 256, 512, radius, 1,
+                                     rpb, stream)
+        assert rc != 0
     assert torch.equal(gaussian_blur_planar_cuda(x, 1), torch.zeros_like(x))

@@ -21,6 +21,8 @@ pytestmark = pytest.mark.cuda
 
 LUT_NAME = "torchport_cuda_rows_dim"
 SHAPES = [(3, 37, 53), (2, 9, 1), (2, 1, 7), (2, 64, 96)]  # (B, H, W pixels)
+# Rows that span several 32-run segments of a warp.
+WIDE_SHAPES = [(2, 20, 255), (2, 21, 257), (1, 19, 768)]
 CHAINS = [("gaussian3", "sharpen", "edge"), ("edge",), ("gaussian5", "solarize"),
           ("posterize4", "gaussian9", "edge"), (LUT_NAME, "sharpen")]
 
@@ -39,18 +41,26 @@ def _rows(cuda, shape, c, seed):
     return torch.randint(0, 256, (b, h, w * c), dtype=torch.uint8, device=cuda, generator=gen)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("c", [1, 3, 4, 5])
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES)
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 8, 9])
 @pytest.mark.parametrize("h_pad", [True, False])
 @pytest.mark.parametrize("radius", [1, 2, 3, 4])
-def test_k1_rows_matches_plain(cuda, radius, h_pad, c, shape):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k1_rows_matches_plain(cuda, offset, radius, h_pad, c, shape):
+    """C = 1-4 with r*C <= 8 on aligned rows is K1's pairs form; r*C beyond
+    one run, C = 5, 8 or 9, and storage offset 1 (unaligned rows) its run
+    form."""
     if not h_pad and shape[1] <= 2 * radius:
         pytest.skip("valid mode needs H > 2r")
-    x = _rows(cuda, shape, c, seed=radius * 10 + c)
+    b, h, w = shape
+    full = _rows(cuda, (b * h * w + 1, 1, 1), c, seed=radius * 10 + c).flatten()
+    x = full[offset:offset + b * h * w * c].view(b, h, w * c)
     want = tblur.gaussian_blur_rows(x, c, radius, h_pad=h_pad)
+    out = torch.empty(want.numel() + offset, dtype=torch.uint8, device=cuda)[offset:]
+    out = out.view(want.shape)
     before = gaussian_blur_rows_cuda.launches
     for rpb in (1, 8, 64, want.shape[1]):
-        got = gaussian_blur_rows_cuda(x, c, radius, h_pad=h_pad, rows_per_block=rpb)
+        got = gaussian_blur_rows_cuda(x, c, radius, h_pad=h_pad, rows_per_block=rpb, out=out)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"rows_per_block={rpb}"
     assert gaussian_blur_rows_cuda.launches == before + 4
@@ -89,28 +99,30 @@ def test_apply_rows_and_nhwc_match_plain(cuda, name, h_pad, c):
 
 
 def test_wide_rows_relayout_to_the_tiled_route(cuda):
-    # 40 x 3500 RGB rows: K1's rows tile (16 + 2) * 10500 * 2 B exceeds shared
-    # memory, and 3500-wide planes route tiled (tplib.routes_tiled), so both
-    # pipelines relayout to planar and run K4 and K5.
+    # 40 x 3500 RGB rows: 3500-wide planes of the chain route tiled
+    # (tplib.routes_tiled), so it relayouts to planar and runs K4 and K5;
+    # K1's rows entry takes no shared memory, so blur3 stays on it.
     from hipe_tpu_torch.ops.cuda_tiled import gaussian_blur_planar_tiled_cuda
 
     x = _rows(cuda, (1, 40, 3500), 3, seed=7)
-    for name, k4, k5 in (("blur3", 1, 0), ("chain", 1, 2)):
+    for name, k1, k4, k5 in (("blur3", 1, 0, 0), ("chain", 0, 1, 2)):
         pipe = tplib.get(name)
-        assert not pipe.rows_entry_fits(40, 3500, 3) and pipe.routes_tiled(40, 3500)
+        assert pipe.rows_entry_fits(40, 3500, 3) == bool(k1)
+        assert pipe.routes_tiled(40, 3500) == (not k1)
         want = tblur.filter_chain_rows(x, 3, pipe.filters)
-        before = (gaussian_blur_planar_tiled_cuda.launches,
+        before = (gaussian_blur_rows_cuda.launches, gaussian_blur_planar_tiled_cuda.launches,
                   filter_stage_planar_tiled_cuda.launches)
         assert torch.equal(pipe.apply_rows(x, 3), want)
-        assert (gaussian_blur_planar_tiled_cuda.launches,
-                filter_stage_planar_tiled_cuda.launches) == (before[0] + k4, before[1] + k5)
+        assert (gaussian_blur_rows_cuda.launches, gaussian_blur_planar_tiled_cuda.launches,
+                filter_stage_planar_tiled_cuda.launches) == (
+                    before[0] + k1, before[1] + k4, before[2] + k5)
 
 
 def test_rows_entries_refuse_what_they_do_not_take(cuda):
     x = torch.zeros((1, 16, 200000), dtype=torch.uint8, device=cuda)
-    # A tile too wide for shared memory even at one row.
-    with pytest.raises(RuntimeError, match="launch failed"):
-        gaussian_blur_rows_cuda(x, 4, 1, rows_per_block=1)
+    # K2's rows tile is too wide for shared memory even at one row; K1's
+    # rows entry takes no shared memory and blurs it.
+    assert torch.equal(gaussian_blur_rows_cuda(x, 4, 1, rows_per_block=1), x)
     with pytest.raises(RuntimeError, match="launch failed"):
         filter_chain_rows_cuda(x, 4, ("gaussian3", "sharpen"), rows_per_block=1)
     with pytest.raises(ValueError, match="band and point"):

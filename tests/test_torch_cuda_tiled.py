@@ -137,17 +137,28 @@ def test_tiled_chain_matches_plain_and_reuses_scratch(cuda, names, h_pad):
 
 
 def test_oversized_planes_run_only_the_tiled_kernels(cuda):
-    # 3500 wide: K1's 32-row tile needs 34 * 3500 * 2 B, over 227 KB.
+    # 3500 wide: K2's and K3's 32-row tile needs 2 * 38 * 3520 B, over 227
+    # KB, so chain and denoise run only K4 and K5; K1 takes no shared memory,
+    # so blur3 stays on it.
     x = _planes(cuda, (1, 40, 3500), seed=3)
-    counters = (gaussian_blur_planar_cuda, filter_chain_planar_cuda, rank_chain_planar_cuda)
+    counters = (filter_chain_planar_cuda, rank_chain_planar_cuda,
+                gaussian_blur_planar_tiled_cuda)
     before = [fn.launches for fn in counters]
-    for name in ("blur3", "chain", "denoise"):
+    for name in ("chain", "denoise"):
         pipe = tplib.get(name)
         assert pipe.routes_tiled(40, 3500)
         for h_pad in (True, False):
             want = tblur.filter_chain(x, pipe.filters, h_axis=-2, w_axis=-1, h_pad=h_pad)
             assert torch.equal(pipe.apply_planar(x, h_pad=h_pad), want)
-    assert [fn.launches for fn in counters] == before
+    assert [fn.launches for fn in counters[:2]] == before[:2]
+    assert counters[2].launches == before[2] + 4
+    blur3, k1 = tplib.get("blur3"), gaussian_blur_planar_cuda.launches
+    assert not blur3.routes_tiled(40, 3500)
+    for h_pad in (True, False):
+        want = tblur.filter_chain(x, blur3.filters, h_axis=-2, w_axis=-1, h_pad=h_pad)
+        assert torch.equal(blur3.apply_planar(x, h_pad=h_pad), want)
+    assert gaussian_blur_planar_cuda.launches == k1 + 2
+    assert [fn.launches for fn in counters] == [before[0], before[1], before[2] + 4]
 
 
 def test_tiled_kernels_refuse_what_they_do_not_take(cuda):

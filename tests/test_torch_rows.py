@@ -133,13 +133,14 @@ def test_apply_rows_out_and_nhwc_blur_wrapper():
 
 def test_rows_entry_fits_shared_memory():
     blur3, chain = tplib.get("blur3"), tplib.get("chain")
-    # The 5000-image stream's rows, 256 x 768 lanes: up to 128 rows a block.
+    # K1's rows entry keeps its row sums in registers: the 5000-image
+    # stream's rows, 256 x 768 lanes, fit at every band height, whole planes
+    # too, and so do 4000-pixel RGB rows.
     assert blur3.rows_entry_fits(256, 256, 3)
     assert blur3.rows_entry_fits(256, 256, 3, rows_per_block=128)
-    assert not blur3.rows_entry_fits(256, 256, 3, rows_per_block=256)
-    assert shared_bytes(256, 768, 1, True, 128) == 130 * 768 * 2
-    # A 4000-pixel RGB row is too wide even at the default 16 rows.
-    assert not blur3.rows_entry_fits(2250, 4000, 3)
+    assert blur3.rows_entry_fits(256, 256, 3, rows_per_block=256)
+    assert shared_bytes(256, 768, 1, True, 128) == 0
+    assert blur3.rows_entry_fits(2250, 4000, 3)
     # Only a single gaussian has a rows entry on the card's route.
     assert not chain.rows_entry_fits(32, 32, 3)
 

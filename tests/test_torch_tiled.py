@@ -96,17 +96,18 @@ def test_routes_tiled_follows_shared_memory():
     assert tplib.SHARED_BYTES_PER_BLOCK == 227 * 1024
     for name in ("blur3", "chain", "denoise"):
         pipe = tplib.get(name)
-        # The reference's 4000x2250 frame: blur3's 32-row tile alone needs
-        # 34 * 4000 * 2 B = 272 KB.
-        assert pipe.routes_tiled(2250, 4000)
+        # The reference's 4000x2250 frame: K2's and K3's 32-row tile needs
+        # 2 * 38 * 4032 B = 306 KB; K1 takes no shared memory, so blur3
+        # stays on it at any width.
+        assert pipe.routes_tiled(2250, 4000) == (name != "blur3")
         assert not pipe.routes_tiled(256, 256)
         assert not pipe.routes_tiled(1080, 1920)
-    assert tplib.fused_shared_bytes(32, 4000, ("gaussian3",)) == 34 * 4000 * 2
+    assert tplib.fused_shared_bytes(32, 4000, ("gaussian3",)) == 0
     # K2's padded rows: 4000 + 20 bytes, rounded up to 16.
     assert tplib.fused_shared_bytes(32, 4000, ("gaussian3", "sharpen", "edge")) == 2 * 38 * 4032
-    # The widest plane each kernel's 32-row tile still fits.
-    assert not tplib.routes_tiled(32, 3418, ("gaussian3",))
-    assert tplib.routes_tiled(32, 3419, ("gaussian3",))
+    # The widest plane each kernel's 32-row tile still fits: K1 has none.
+    assert not tplib.routes_tiled(32, 3419, ("gaussian3",))
+    assert not tplib.routes_tiled(32, 1 << 20, ("gaussian3",))
     assert not tplib.routes_tiled(32, 3032, ("gaussian3", "sharpen", "edge"))
     assert tplib.routes_tiled(32, 3033, ("gaussian3", "sharpen", "edge"))
     # A plane shorter than the tile is judged at its own height.

@@ -7,6 +7,7 @@ turns, on one NVIDIA GPU.
     python3 chain_ab.py --stages build/other
     python3 chain_ab.py --tiled build/other
     python3 chain_ab.py --blur build/other
+    python3 chain_ab.py --dct build/other
 
 Runs four processes one after another, each on one tree: OTHER, THIS,
 THIS, OTHER. Each builds its tree's kernels (into that tree's ``build/``).
@@ -34,10 +35,19 @@ entry at C = 1 and 4 over the rows stream, blur3 through
 ``Pipeline.apply_rows`` over 100 RGB frames of 4000x2250 (a relayout to
 planar and back on the tiled route, or K1's rows entry), K4 over the
 5000-image stream at every tile its autotune sweeps, and K1, K2, K3, K6 and
-K7 as ``--tiled`` does. Prints one JSON line a run and writes them to
+K7 as ``--tiled`` does. With ``--dct`` each runs its tree's
+``chip_smoke.py`` phase 18 (the codec's encode, decode, decode + blur3 and
+transcode over the 5000-image 4:2:0 q90 stream, each against the plain path)
+and times K6 alone (the stream's three coefficient sets) and K7 alone (the
+three sample grids K6 makes of them), each against its plain version, and
+reads K6's and K7's ptxas report from the tree's build log and their SASS
+(``cuobjdump -sass`` of the tree's library): static instructions, and
+instructions a sample, which is that times the threads a launch runs
+(grid and block from a torch.profiler trace) over its samples, as neither
+kernel loops. Prints one JSON line a run and writes them to
 ``build/chain_ab/chain_ab.jsonl`` (``chain_ab_stages.jsonl``,
-``chain_ab_tiled.jsonl``, ``chain_ab_blur.jsonl``); exits non-zero if a run
-fails.
+``chain_ab_tiled.jsonl``, ``chain_ab_blur.jsonl``, ``chain_ab_dct.jsonl``);
+exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -230,10 +240,125 @@ def blur(cs, card: str) -> dict:
     return res
 
 
+DCT_KERNELS = {"K6": "dequant_idct_kernel", "K7": "fdct_quantize_kernel"}
+
+
+def ptxas_report(log: str, name: str) -> list:
+    """The ptxas numbers of kernel ``name`` in an ``nvcc -Xptxas -v`` log:
+    registers, spill stores, spill loads, stack frame, barriers, shared
+    bytes; -1 where the report lacks one."""
+    import re
+
+    entry = next(e for e in log.split("Compiling entry function")[1:]
+                 if name in e.split("\n")[0])
+    found = [re.search(pat, entry) for pat in (
+        r"Used (\d+) registers", r"(\d+) bytes spill stores", r"(\d+) bytes spill loads",
+        r"(\d+) bytes stack frame", r"used (\d+) barriers", r"(\d+) bytes smem")]
+    return [int(m.group(1)) if m else -1 for m in found]
+
+
+def sass_instructions(lib: str, name: str) -> int:
+    """Static SASS instructions of kernel ``name`` in the library ``lib``
+    (``cuobjdump -sass``, beside ``nvcc``)."""
+    import re
+
+    from hipe_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=300).stdout
+    fn = next(f for f in sass.split("Function : ")[1:] if name in f.split("\n")[0])
+    return len(re.findall(r"/\*[0-9a-f]{4}\*/\s+\S", fn))
+
+
+def launch_threads(fn, per_call: int = 3) -> dict:
+    """Threads one ``fn()`` runs in each DCT kernel, by kernel label: the
+    grids and blocks torch.profiler records for the last ``per_call``
+    launches of each over three calls (a trace can miss its first ones)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    out_dir = os.path.join(HERE, "build", "chain_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.NamedTemporaryFile(suffix=".json", dir=out_dir) as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as trace:
+            events = json.load(trace)["traceEvents"]
+    launches = {label: [] for label in DCT_KERNELS}
+    for e in sorted(events, key=lambda e: e.get("ts", 0)):
+        args = e.get("args", {})
+        for label, name in DCT_KERNELS.items():
+            if e.get("cat") == "kernel" and name in e.get("name", "") and "grid" in args:
+                g, b = args["grid"], args["block"]
+                launches[label].append(g[0] * g[1] * g[2] * b[0] * b[1] * b[2])
+    return {label: sum(t[-per_call:]) if len(t) >= per_call else 0
+            for label, t in launches.items()}
+
+
+def dct(cs, card: str) -> dict:
+    """Phase 18 of the tree's chip_smoke.py, and K6 and K7 alone over the
+    phase-18 stream: ms, max_abs_err against the plain versions, ptxas
+    numbers and SASS instructions."""
+    import torch
+
+    from hipe_tpu_torch.io_.jpeg import quality_tables
+    from hipe_tpu_torch.ops import _build, cuda_dct
+    from hipe_tpu_torch.ops import jpeg_decode as jd
+    from hipe_tpu_torch.ops import jpeg_encode as je
+    from hipe_tpu_torch.utils.images import checker_image
+
+    codec = cs.phase_codec_main_paths(card)
+    res = {"codec": {name: {"ms": p["ms"], "err": p["err"]}
+                     for name, p in codec["paths"].items()},
+           "split": codec["split"]}
+    # The phase-18 stream, as chip_smoke.py makes it.
+    geo = je.encode_geometry(cs.SIDE, cs.SIDE, cs.CHANNELS, "420")
+    luma, chroma = quality_tables(90)
+    qt = [luma, chroma, chroma]
+    one = torch.from_numpy(checker_image(cs.SIDE, cs.SIDE, cs.CHANNELS, seed=0)).cuda()[None]
+    coefs = [c.expand(cs.NUM_IMAGES, *c.shape[1:]).contiguous()
+             for c in je.encode_planes(geo, one, qt)]
+    grids = [cuda_dct.dequant_idct_cuda(c, q) for c, q in zip(coefs, qt)]
+    outs = [cuda_dct.fdct_quantize_cuda(g, q) for g, q in zip(grids, qt)]
+    res["K6"] = {"ms": cs.cuda_ms(lambda: [cuda_dct.dequant_idct_cuda(c, q, out=g) for c, q, g
+                                          in zip(coefs, qt, grids)], reps=cs.PASSES),
+                 "err": max(cs.max_abs_err(g, cs.chunked(jd.idct8x8_islow, c, q))
+                            for c, q, g in zip(coefs, qt, grids))}
+    res["K7"] = {"ms": cs.cuda_ms(lambda: [cuda_dct.fdct_quantize_cuda(g, q, out=o) for g, q, o
+                                          in zip(grids, qt, outs)], reps=cs.PASSES),
+                 "err": max(cs.max_abs_err(o, cs.chunked(je.fdct_quantize_plain, g, q))
+                            for g, q, o in zip(grids, qt, outs))}
+    threads = launch_threads(lambda: ([cuda_dct.dequant_idct_cuda(c, q, out=g) for c, q, g
+                                       in zip(coefs, qt, grids)],
+                                      [cuda_dct.fdct_quantize_cuda(g, q, out=o) for g, q, o
+                                       in zip(grids, qt, outs)]))
+    samples = sum(g.numel() for g in grids)
+    lib = _build.build()
+    log = (lib.parent / "build.log").read_text()
+    for label, name in DCT_KERNELS.items():
+        sass = sass_instructions(str(lib), name)
+        res[label].update(ptxas=ptxas_report(log, name), sass_instructions=sass,
+                          sass_a_sample=sass * threads[label] / samples if threads[label] else None)
+    if res["K6"]["err"] or res["K7"]["err"]:
+        raise AssertionError(f"K6/K7 differ from their plain versions: {res}")
+    print(f"[dct] K6 {res['K6']} K7 {res['K7']} [{card}]", flush=True)
+    del coefs, grids, outs
+    torch.cuda.empty_cache()
+    return res
+
+
 def one(root: str, mode: str) -> dict:
     """One tree's run, in this process: ``root``'s own package and script;
     ``mode`` is "sweep" (the main paths and CHAINS), "paths", "stages",
-    "tiled-sweep" (phase 14 and the K5 stages), "tiled" or "blur"."""
+    "tiled-sweep" (phase 14 and the K5 stages), "tiled", "blur" or "dct"."""
     root = os.path.abspath(root)
     sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
     os.chdir(root)
@@ -255,6 +380,9 @@ def one(root: str, mode: str) -> dict:
         return res
     if mode == "blur":
         res.update(blur(cs, card))
+        return res
+    if mode == "dct":
+        res.update(dct(cs, card))
         return res
     for phase, name in (("7", "chain"), ("8", "denoise")):
         res[name] = cs.phase_main_path(card, phase, name)["ms"]
@@ -286,7 +414,8 @@ def main() -> int:
         return 0
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    if len(args) != 1 or len(flags) > 1 or not set(flags) <= {"--stages", "--tiled", "--blur"}:
+    known = {"--stages", "--tiled", "--blur", "--dct"}
+    if len(args) != 1 or len(flags) > 1 or not set(flags) <= known:
         raise SystemExit(__doc__)
     other = os.path.abspath(args[0])
     if not os.path.exists(os.path.join(other, "chip_smoke.py")):
@@ -299,6 +428,7 @@ def main() -> int:
         "--stages": (("stages",) * 4, "chain_ab_stages.jsonl"),
         "--tiled": (("tiled-sweep", "tiled-sweep", "tiled", "tiled"), "chain_ab_tiled.jsonl"),
         "--blur": (("blur",) * 4, "chain_ab_blur.jsonl"),
+        "--dct": (("dct",) * 4, "chain_ab_dct.jsonl"),
     }.get(flag, (("sweep", "sweep", "paths", "paths"), "chain_ab.jsonl"))
     for root, mode in zip((other, HERE, HERE, other), modes):
         t0 = time.perf_counter()

@@ -89,15 +89,20 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     own times for those two stages.
 
 15. The codec's build: the ptxas report of K6 and K7 (``dct_blocks.cu``,
-    built in phase 2 with the rest).
+    built in phase 2 with the rest): registers, spills, stack frame,
+    barriers, shared memory; fails if K7 spills or keeps a stack frame.
 16. Holds K6 (dequantize + IDCT) against its plain PyTorch version:
     distinct random coefficients over the full int16 range (+-32767 among
     them) and over [-2048, 2048), random 8-bit and 16-bit quant tables,
     block grids (1,1) to (282,500) (the luma of a 4000x2250 frame) in
     batches of 1-8, and the main path's 5000-image grids. Max-abs must be 0.
 17. Holds K7 (fDCT + quantize) against its plain version the same way, on
-    random uint8 grids with ``quality_tables(q)`` for q in {1, 50, 75, 90,
-    100} and random 8- and 16-bit tables; int16 outputs must be equal.
+    random uint8 grids, grids of flat 0 and 255 blocks, and grids of the
+    blocks that reach each coefficient's extremes (samples 0 or 255 by the
+    signs of its DCT basis; the DC's are the flat blocks, |t| = 8192 before
+    quantizing), with ``quality_tables(q)`` for q in {1, 50, 75, 90, 100},
+    tables of 1 and of 65535 at every position, and random 8- and 16-bit
+    tables; int16 outputs must be equal.
 18. The codec main paths over the device-resident coefficient stream: the
     4:2:0 quality-90 coefficients of ``checker_image(256, 256, 3, seed=0)``
     in 5000 distinct per-image buffers (983 MB of int16). Encode (pixels
@@ -178,13 +183,15 @@ INT8_OPS_PER_S = 1979e12
 # K6's and K7's products exceed 24 bits, so no tensor-core peak applies.
 INT32_OPS_PER_S = 2 * 64 * 132 * 1.98e9
 # int32 operations a sample, counted by hand from the code (a multiply, an
-# add, a shift, a compare, a select, a divide: one each; DESCALE two): an
-# 8-point IDCT pass 62 for 8 samples, an 8-point fDCT pass 58 (row) and 60
-# (column). K6: dequantize 1 + two passes 15.5 + the range limit 9 (and,
-# three compares, three selects, two adds). K7: level shift 1 + two passes
-# 14.75 + the quantizer 6 (abs, add, divide, compare, negate, select).
+# add, a shift, a compare, a select, an abs, a byte permute: one each;
+# DESCALE two): an 8-point IDCT pass 62 for 8 samples, an 8-point fDCT pass
+# 58 (row) and 60 (column). K6: dequantize 1 + two passes 15.5 + the range
+# limit 9 (and, three compares, three selects, two adds). K7: the byte's
+# extract 1 + two passes 14.75 + the level shift 1/64 (one subtract a
+# block, from its DC) + the quantizer 7 (abs, add, multiply-high, shift,
+# compare, negate, select; no divide) + 1/2 to pack two coefficients a word.
 K6_OPS_PER_SAMPLE = 1 + 2 * 62 / 8 + 9
-K7_OPS_PER_SAMPLE = 1 + (58 + 60) / 8 + 6
+K7_OPS_PER_SAMPLE = 1 + (58 + 60) / 8 + 1 / 64 + 7 + 1 / 2
 DCT_GRIDS = ((1, 1), (5, 7), (4, 16), (32, 32), (16, 16), (282, 500))  # (Hb, Wb)
 QUALITIES = (1, 50, 75, 90, 100)
 LUT_NAME = "dim"  # brightness_lut(0.7), registered in phase 4
@@ -987,26 +994,32 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
             "yard": yard}
 
 
-def phase_dct_build(card: str) -> None:
-    """The ptxas report of K6 and K7 (built in phase 2 with the rest)."""
+def phase_dct_build(card: str) -> dict:
+    """The ptxas report of K6 and K7 (built in phase 2 with the rest); fails
+    if K7 spills or keeps a stack frame."""
     import re
 
     from hipe_tpu_torch.ops import _build
 
     log = (_build.build().parent / "build.log").read_text()
-    lines = []
+    found = {}
     for entry in log.split("Compiling entry function")[1:]:
         name = re.search(r"(dequant_idct|fdct_quantize)_kernel", entry.split("\n")[0])
         if name:
-            regs = re.search(r"Used (\d+) registers", entry)
+            barriers = re.search(r"used (\d+) barriers", entry)
             smem = re.search(r"(\d+) bytes smem", entry)
-            spill = re.search(r"(\d+) bytes spill stores", entry)
-            lines.append(f"{name.group(0)} {regs.group(1) if regs else '?'} registers, "
-                         f"{smem.group(1) if smem else '?'} B shared, "
-                         f"{spill.group(1) if spill else '?'} B spill stores")
-    if len(lines) != 2:
-        raise AssertionError(f"build.log has no ptxas report of K6 and K7: {lines}")
-    print(f"[15 codec build] csrc/dct_blocks.cu: {'; '.join(lines)} [{card}]", flush=True)
+            found[name.group(0)] = (*ptxas_numbers(entry),
+                                    int(barriers.group(1)) if barriers else -1,
+                                    int(smem.group(1)) if smem else -1)
+    if set(found) != {"dequant_idct_kernel", "fdct_quantize_kernel"}:
+        raise AssertionError(f"build.log has no ptxas report of K6 and K7: {found}")
+    if found["fdct_quantize_kernel"][1:4] != (0, 0, 0):
+        raise AssertionError(f"K7 spills or keeps a stack frame: {found}")
+    print("[15 codec build] csrc/dct_blocks.cu (registers, spill stores, spill loads, stack "
+          "frame, barriers, shared bytes): " + "; ".join(
+              f"{name} {'/'.join(str(n) for n in nums)}" for name, nums in sorted(found.items()))
+          + f" [{card}]", flush=True)
+    return found
 
 
 def chunked(fn, x: torch.Tensor, *args) -> torch.Tensor:
@@ -1069,13 +1082,41 @@ def random_coefs(shape: tuple, kind: str, gen: torch.Generator) -> torch.Tensor:
 random_coefs.kinds = ("full int16", "[-2048, 2048)")
 
 
+def extreme_blocks() -> torch.Tensor:
+    """(130, 8, 8) uint8: for each coefficient (u, v), the block of 0s and
+    255s by the signs of the DCT basis cos((2x+1)u pi/16) cos((2y+1)v pi/16),
+    which takes it to its largest value, and the complement, its least; then
+    a block of 0s and one of 255s (the DC's: |t| 8192 and 8128)."""
+    import math
+
+    x = torch.arange(8, dtype=torch.float64)
+    basis = torch.stack([torch.cos((2 * x + 1) * u * math.pi / 16) for u in range(8)]) > 0
+    top = torch.stack([basis[u][:, None] == basis[v][None, :] for u in range(8)
+                       for v in range(8)]).to(torch.uint8) * 255
+    return torch.cat([top, 255 - top, torch.zeros((1, 8, 8), dtype=torch.uint8),
+                      torch.full((1, 8, 8), 255, dtype=torch.uint8)])
+
+
 def random_grid(shape: tuple, kind: str, gen: torch.Generator) -> torch.Tensor:
+    """(B, Hb*8, Wb*8) uint8: flat blocks of 0 or 255, the extreme blocks in
+    turn from a random start, or random samples."""
     b, hb, wb = shape
-    return torch.randint(0, 256, (b, hb * 8, wb * 8), dtype=torch.uint8, device=gen.device,
-                         generator=gen)
+    dev = gen.device
+    if kind == "uint8":
+        return torch.randint(0, 256, (b, hb * 8, wb * 8), dtype=torch.uint8, device=dev,
+                             generator=gen)
+    if kind == "flat 0/255":
+        flat = torch.randint(0, 2, (b * hb * wb,), device=dev, generator=gen) * 255
+        blocks = flat.to(torch.uint8)[:, None, None].expand(-1, 8, 8)
+    else:
+        ext = extreme_blocks().to(dev)
+        start = torch.randint(0, len(ext), (1,), device=dev, generator=gen)
+        blocks = ext[(torch.arange(b * hb * wb, device=dev) + start) % len(ext)]
+    blocks = blocks.reshape(b, hb, wb, 8, 8).transpose(2, 3)
+    return blocks.reshape(b, hb * 8, wb * 8).contiguous()
 
 
-random_grid.kinds = ("uint8",)
+random_grid.kinds = ("flat 0/255", "sign patterns", "uint8")
 
 
 def phase_k6_vs_plain(card: str) -> int:
@@ -1094,6 +1135,8 @@ def phase_k7_vs_plain(card: str) -> int:
 
     tables = {f"{part} q{q}": t for q in QUALITIES
               for part, t in zip(("luma", "chroma"), quality_tables(q))}
+    tables.update({"all 1": torch.ones(64, dtype=torch.int64),
+                   "all 65535": torch.full((64,), 65535, dtype=torch.int64)})
     return phase_dct_vs_plain(card, "17", "K7", fdct_quantize_cuda, fdct_quantize_plain,
                               random_grid, tables, ((32, 32), (16, 16)),
                               quality_tables(90)[1], seed=8)
@@ -1281,7 +1324,7 @@ def main() -> int:
     large_chain = phase_large_frames(card, "chain")
     large_blur3 = phase_large_frames(card, "blur3")
     k4, k5 = large_chain["own"]["K4"], large_chain["own"]["K5"]
-    phase_dct_build(card)
+    dct_ptxas = phase_dct_build(card)
     k6_err = phase_k6_vs_plain(card)
     k7_err = phase_k7_vs_plain(card)
     codec = phase_codec_main_paths(card)
@@ -1393,6 +1436,8 @@ def main() -> int:
         "bound_ms": codec["bounds"]["K6"][0],
         "bound_by": codec["bounds"]["K6"][1],
         "library_ms": no_library,
+        # registers, spill stores, spill loads, stack frame, barriers, shared bytes
+        "ptxas": dct_ptxas["dequant_idct_kernel"],
     }, {
         "name": "fdct_quantize_u8",
         "route": "cuda",
@@ -1406,6 +1451,7 @@ def main() -> int:
         "bound_ms": codec["bounds"]["K7"][0],
         "bound_by": codec["bounds"]["K7"][1],
         "library_ms": no_library,
+        "ptxas": dct_ptxas["fdct_quantize_kernel"],
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

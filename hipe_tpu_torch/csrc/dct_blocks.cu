@@ -28,23 +28,34 @@
 // behind. One transcode pass over the 5000-image 256x256 4:2:0 stream moves
 // 983 MB of int16 and 492 MB of uint8 through each kernel (0.44 ms at the
 // data sheet's 3.35 TB/s). The two 1-D passes, the dequantize or quantize
-// and the range limit cost 25.5 (K6) and 21.75 (K7) int32 operations a
-// sample (counted in chip_smoke.py), 0.37 and 0.32 ms at the CUDA cores'
+// and the range limit cost 25.5 (K6) and 23.27 (K7) int32 operations a
+// sample (counted in chip_smoke.py), 0.37 and 0.34 ms at the CUDA cores'
 // peak (64 lanes x 132 SMs x 1.98 GHz, two operations an instruction at
 // most), and more in instructions issued: the int8 tensor cores do not
 // apply, as the products exceed 24 bits.
 //
-// What the design does about it (a first, simple design): 8 threads an 8x8
-// block, 32 blocks a thread block. The first 1-D pass runs in registers on
-// a column (K6) or a row (K7) a thread, one transpose goes through shared
-// memory, and the second pass runs on a row or a column. K6 reads its
-// column's 8 coefficients (neighbouring groups read neighbouring blocks, so
-// the 128-byte blocks are read once through L1) and stores each output row
-// as 8 bytes; K7 loads each input row as 8 bytes and stores each
-// coefficient row as 16. The quant table travels by value as a kernel
-// parameter and is staged in shared memory, once a thread block; nothing is
-// copied a launch.
-
+// K6 (a first, simple design): 8 threads an 8x8 block, 32 blocks a thread
+// block. The column pass runs in registers on a column a thread, one
+// transpose goes through shared memory, and the row pass runs on a row a
+// thread. Each thread reads its column's 8 coefficients (neighbouring
+// groups read neighbouring blocks, so the 128-byte blocks are read once
+// through L1) and stores its output row as 8 bytes. The quant table
+// travels by value as a kernel parameter and is staged in shared memory,
+// once a thread block.
+//
+// K7 (redesigned for Hopper): a thread an 8x8 block, in its registers:
+// eight 8-byte row loads, the row pass, the column pass and the quantizer.
+// So no transpose goes through shared memory and no thread block waits at a
+// barrier, and every thread works on the same table position at the same
+// time: the quantizer's per-position constants are warp-uniform kernel
+// parameters, read from the constant bank. The quantizer divides by no
+// runtime divisor (quantize(), with its exactness bound), and the level
+// shift is one subtract a block (the DC: see the kernel). A 2-D grid puts
+// the block row (b * Hb + by) in x and the block column in y, so the
+// addressing divides by nothing either. A warp's loads cover whole runs of
+// its blocks' rows (32 blocks: 256 contiguous bytes a row); its stores go
+// through shared memory (its own 4.5 KB, ordered by __syncwarp), so that
+// each store instruction writes 4 whole blocks, 512 contiguous bytes.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -206,63 +217,131 @@ __global__ void __launch_bounds__(kThreads)
   *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
 }
 
-// K7. The block layout of K6, the other way round.
-__global__ void __launch_bounds__(kThreads)
+// K7's quantizer: jcdct.c's v = (|t| + qd/2) / qd for the divisor qd = q << 3
+// of each table position, the sign put back (round half away from zero),
+// without a division. With L = floor(log2 qd) (3..18 for q in 1..65535):
+//   mul = ceil(2^(31+L) / qd), in (2^30, 2^31];  shift = L - 1;  half = qd >> 1,
+// and for a = |t| + half, a / qd = umulhi(a, mul) >> shift: the high word
+// of the 64-bit product and the shift floor twice, which is one floor of
+// a * mul / 2^(31+L). Exact for every a < 2^30: write mul * qd = 2^(31+L) + e
+// with 0 <= e < qd, and a = v * qd + r with 0 <= r < qd; then
+//   a * mul / 2^(31+L) = v + (r + a * e / 2^(31+L)) / qd,
+// and a * e < 2^30 * 2^(L+1) = 2^(31+L), so the fraction stays below 1.
+// What a reaches: level-shifted samples lie in [-128, 127]. The row pass
+// gives at most 4096 in magnitude (its DC, 8 * 128 << 2), the column pass at
+// most 8192: the DC of a block of 0s, 64 * 128. No AC term passes 8160, the
+// most any one reaches, on the block whose samples are 0 or 255 by the signs
+// of its weights. So a <= 8192 + (65535 << 2) = 270332 < 2^19.
+struct QuantTable {
+  uint32_t mul[64];  // natural order
+  uint32_t half[64];
+  uint32_t shift[64];
+};
+
+__device__ __forceinline__ uint32_t quantize(int32_t t, uint32_t mul, uint32_t half,
+                                             uint32_t shift) {
+  const uint32_t mag = t < 0 ? 0u - static_cast<uint32_t>(t) : static_cast<uint32_t>(t);
+  const uint32_t v = __umulhi(mag + half, mul) >> shift;
+  return t < 0 ? 0u - v : v;
+}
+
+// K7's thread blocks: 128 threads, at least 6 of them an SM. That caps a
+// thread at 80 registers, which it fits without a spill; left to itself the
+// compiler takes 112 (4 thread blocks an SM) and runs 9% slower on the
+// codec's stream, and at 7 (72 registers) it spills (dct_variants.py).
+constexpr int kK7Threads = 128;
+constexpr int kK7MinCtas = 6;
+// The level shift. The row pass runs on the unshifted samples: -128 on each
+// of them cancels in every output but the row's DC, which is 4096 too large
+// ((8 * 128) << 2). In the column pass over those DCs the 4096 cancels in
+// turn in every output but the block's DC, which is
+// DESCALE(x + 8 * 4096, 2) = DESCALE(x, 2) + 8192 too large.
+constexpr uint32_t kDcShift = 8192;
+
+// K7. Thread (x, y) of thread block (X, Y) takes block column
+// bx = Y' * blockDim.x + x (Y' = Y, Y + gridDim.y, ...) of block row
+// band = X * blockDim.y + y, where band = b * Hb + by: input rows
+// band * 8 + 0..7, columns bx * 8 + 0..7; output block band * Wb + bx.
+__global__ void __launch_bounds__(kK7Threads, kK7MinCtas)
     fdct_quantize_kernel(const uint8_t* __restrict__ grid, int16_t* __restrict__ coefs,
-                         const QTable qt, int nblocks, int wb) {
-  __shared__ uint32_t sqd[64];
-  __shared__ int32_t ws[kBlocksPerCta][8][9];
-  if (threadIdx.x < 64) sqd[threadIdx.x] = qt.q[threadIdx.x] << 3;  // jcdct.c divisors
-  const int g = threadIdx.x >> 3;
-  const int t = threadIdx.x & 7;
-  const int blk = blockIdx.x * kBlocksPerCta + g;
-  const bool live = blk < nblocks;
-  if (live) {
-    // Row pass on row t: one 8-byte load, level shift, fDCT.
-    const int bx = blk % wb;
-    const int band = blk / wb;
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-        grid + (static_cast<size_t>(band) * 8 + t) * (static_cast<size_t>(wb) * 8) +
-        static_cast<size_t>(bx) * 8));
-    uint32_t d[8];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      d[k] = ((v.x >> (8 * k)) & 255u) - 128u;
-      d[k + 4] = ((v.y >> (8 * k)) & 255u) - 128u;
-    }
-    int32_t row[8];
-    fdct_1d<false>(d, row);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) ws[g][t][c] = row[c];
-  }
-  __syncthreads();
-  if (live) {
-    // Column pass on column t, then quantize: |x| + qd/2, divided by qd,
-    // the sign put back. The thread rewrites the column it read.
-    uint32_t d[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) d[r] = static_cast<uint32_t>(ws[g][r][t]);
-    int32_t col[8];
-    fdct_1d<true>(d, col);
+                         const QuantTable qt, int bands, int wb, int tiles) {
+  // The warp's coefficient rows, 16 bytes each, staged for whole-block stores.
+  __shared__ uint4 stage[kK7Threads / 32][32][9];  // +1: no bank conflicts
+  const int lin = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = lin & 31;
+  uint4(*warp)[9] = stage[lin >> 5];
+  const int band = blockIdx.x * blockDim.y + threadIdx.y;
+  const size_t pitch = static_cast<size_t>(wb) * 8;
+  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int bx = tile * blockDim.x + threadIdx.x;
+    const bool live = band < bands && bx < wb;
+    // One 8-byte load a row, all eight issued first.
+    const uint8_t* src =
+        grid + static_cast<size_t>(band) * 8 * pitch + static_cast<size_t>(bx) * 8;
+    uint2 raw[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      const uint32_t qd = sqd[8 * r + t];
-      const uint32_t mag = static_cast<uint32_t>(col[r] < 0 ? -col[r] : col[r]);
-      const int32_t v = static_cast<int32_t>((mag + (qd >> 1)) / qd);
-      ws[g][r][t] = col[r] < 0 ? -v : v;
+      raw[r] = live ? __ldg(reinterpret_cast<const uint2*>(src + r * pitch)) : make_uint2(0, 0);
     }
-  }
-  __syncthreads();
-  if (!live) return;
-  // Row t of the block's coefficients: 8 int16, one 16-byte store.
-  uint32_t w[4];
+    // Row pass on each row.
+    uint32_t ws[8][8];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    w[k] = (static_cast<uint32_t>(ws[g][t][2 * k]) & 0xffffu) |
-           static_cast<uint32_t>(ws[g][t][2 * k + 1]) << 16;
+    for (int r = 0; r < 8; ++r) {
+      uint32_t d[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        d[k] = __byte_perm(raw[r].x, 0u, 0x4440u | k);
+        d[k + 4] = __byte_perm(raw[r].y, 0u, 0x4440u | k);
+      }
+      int32_t row[8];
+      fdct_1d<false>(d, row);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) ws[r][c] = static_cast<uint32_t>(row[c]);
+    }
+    // Column pass on each column, quantize; two columns' int16 a word.
+    uint32_t packed[8][4];
+#pragma unroll
+    for (int v = 0; v < 8; v += 2) {
+      uint32_t qv[2][8];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t d[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) d[r] = ws[r][v + j];
+        int32_t col[8];
+        fdct_1d<true>(d, col);
+        if (v + j == 0) col[0] = static_cast<int32_t>(static_cast<uint32_t>(col[0]) - kDcShift);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int k = 8 * u + v + j;
+          qv[j][u] = quantize(col[u], qt.mul[k], qt.half[k], qt.shift[k]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) packed[u][v / 2] = __byte_perm(qv[0][u], qv[1][u], 0x5410u);
+    }
+    // Coefficient row u of the lane's block to row u of its slot. Then the
+    // warp stores the 32 slots as 8 runs of 4 whole blocks, each lane one
+    // 16-byte row, skipping blocks off the grid. (Each lane storing its own
+    // block, 32 blocks 128 bytes apart an instruction, runs 1.8x slower:
+    // dct_variants.py.)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      warp[lane][u] = make_uint4(packed[u][0], packed[u][1], packed[u][2], packed[u][3]);
+    }
+    const int blk = live ? band * wb + bx : -1;
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int from = 4 * s + (lane >> 3);
+      const int k = __shfl_sync(0xffffffffu, blk, from);
+      if (k >= 0) {
+        *reinterpret_cast<uint4*>(coefs + static_cast<size_t>(k) * 64 + (lane & 7) * 8) =
+            warp[from][lane & 7];
+      }
+    }
+    __syncwarp();
   }
-  *reinterpret_cast<uint4*>(coefs + static_cast<size_t>(blk) * 64 + t * 8) =
-      make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 bool make_table(const unsigned* qtable, QTable* qt) {
@@ -273,12 +352,48 @@ bool make_table(const unsigned* qtable, QTable* qt) {
   return true;
 }
 
+// K7's quant table: each position's divisor as quantize() takes it, or false
+// unless every entry is in 1..65535.
+bool make_quant_table(const unsigned* qtable, QuantTable* qt) {
+  for (int k = 0; k < 64; ++k) {
+    if (qtable[k] < 1u || qtable[k] > 65535u) return false;
+    const uint32_t qd = qtable[k] << 3;
+    uint32_t l = 0;
+    while (qd >> (l + 1)) ++l;  // floor(log2 qd)
+    qt->mul[k] = static_cast<uint32_t>(((1ull << (31 + l)) + qd - 1) / qd);
+    qt->half[k] = qd >> 1;
+    qt->shift[k] = l - 1;
+  }
+  return true;
+}
+
 // Thread blocks for b * hb * wb 8x8 blocks, or 0 if the grid is out of range.
 int ctas_for(int b, int hb, int wb) {
   if (b < 1 || hb < 1 || wb < 1) return 0;
   const long long n = static_cast<long long>(b) * hb * wb;
   if (n > INT_MAX || static_cast<long long>(wb) * 8 > INT_MAX) return 0;
   return static_cast<int>((n + kBlocksPerCta - 1) / kBlocksPerCta);
+}
+
+// K7's launch: thread blocks of gx by 128 / gx threads, gx the least power of
+// two >= wb up to 128; b * hb block rows over gridDim.x (up to 2^31 - 1),
+// the wb / gx tiles of block columns over gridDim.y (up to 65535, the
+// kernel walks the rest). False if the grid is out of range (as ctas_for).
+struct K7Launch {
+  dim3 grid, block;
+  int bands, tiles;
+};
+
+bool k7_launch(int b, int hb, int wb, K7Launch* l) {
+  if (ctas_for(b, hb, wb) == 0) return false;
+  int gx = 1;
+  while (gx < wb && gx < kK7Threads) gx <<= 1;
+  const int gy = kK7Threads / gx;
+  l->bands = b * hb;
+  l->tiles = (wb + gx - 1) / gx;
+  l->block = dim3(gx, gy);
+  l->grid = dim3((l->bands + gy - 1) / gy, l->tiles < 65535 ? l->tiles : 65535);
+  return true;
 }
 
 }  // namespace
@@ -300,10 +415,12 @@ extern "C" int hipe_dequant_idct_s16(const void* coefs, void* out, const unsigne
 // coefs (b, hb, wb, 64) int16, 16-byte aligned. As K6 otherwise.
 extern "C" int hipe_fdct_quantize_u8(const void* grid, void* coefs, const unsigned* qtable,
                                      int b, int hb, int wb, void* stream) {
-  QTable qt;
-  const int ctas = ctas_for(b, hb, wb);
-  if (ctas == 0 || !make_table(qtable, &qt)) return static_cast<int>(cudaErrorInvalidValue);
-  fdct_quantize_kernel<<<ctas, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(grid), static_cast<int16_t*>(coefs), qt, b * hb * wb, wb);
+  QuantTable qt;
+  K7Launch l;
+  if (!k7_launch(b, hb, wb, &l) || !make_quant_table(qtable, &qt)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fdct_quantize_kernel<<<l.grid, l.block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(grid), static_cast<int16_t*>(coefs), qt, l.bands, wb, l.tiles);
   return static_cast<int>(cudaGetLastError());
 }

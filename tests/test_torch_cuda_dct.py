@@ -7,6 +7,8 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 (``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -69,6 +71,52 @@ def test_k7_matches_plain(cuda, grid, table):
     torch.cuda.synchronize()
     assert cuda_dct.fdct_quantize_cuda.launches == before + 1
     assert torch.equal(got, je.fdct_quantize_plain(x, q))
+
+
+def _extreme_blocks() -> torch.Tensor:
+    """(130, 8, 8) uint8: for each coefficient the block of 0s and 255s by the
+    signs of its DCT basis (its largest value), the complement (its least),
+    and blocks of 0s and of 255s (the DC's, |t| 8192 and 8128)."""
+    x = torch.arange(8, dtype=torch.float64)
+    pos = torch.stack([torch.cos((2 * x + 1) * u * math.pi / 16) for u in range(8)]) > 0
+    top = torch.stack([pos[u][:, None] == pos[v][None, :] for u in range(8)
+                       for v in range(8)]).to(torch.uint8) * 255
+    return torch.cat([top, 255 - top, torch.zeros((1, 8, 8), dtype=torch.uint8),
+                      torch.full((1, 8, 8), 255, dtype=torch.uint8)])
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (5, 7), (16, 16), (282, 500)])
+@pytest.mark.parametrize("table", ["all 1", "all 65535", "q90", "16-bit"])
+def test_k7_matches_plain_on_flat_and_extreme_blocks(cuda, grid, table):
+    gen = torch.Generator().manual_seed(grid[0] + grid[1] + len(table))
+    hb, wb = grid
+    b = 1 + (hb + wb) % 8
+    n = b * hb * wb
+    ext = _extreme_blocks()
+    flat = (torch.randint(0, 2, (n,), generator=gen) * 255).to(torch.uint8)
+    picks = torch.where(torch.arange(n) % 2 == 0, torch.arange(n) % len(ext),
+                        len(ext) - 2 + flat.long() // 255)
+    x = ext[picks].reshape(b, hb, wb, 8, 8).transpose(2, 3).reshape(b, hb * 8, wb * 8)
+    q = {"all 1": np.ones(64), "all 65535": np.full(64, 65535),
+         "q90": quality_tables(90)[0], "16-bit": _table(gen, True)}[table]
+    x = x.to(cuda)
+    got = cuda_dct.fdct_quantize_cuda(x, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, je.fdct_quantize_plain(x, q))
+
+
+def test_k7_walks_tiles_beyond_the_grid_limit(cuda):
+    # One block row 65535 * 128 + 777 blocks wide: more tiles of 128 block
+    # columns than the grid's y holds, so each thread block walks a second.
+    wb = 65535 * 128 + 777
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randint(0, 256, (1, 8, wb * 8), dtype=torch.uint8, device=cuda, generator=gen)
+    q = quality_tables(75)[1]
+    got = cuda_dct.fdct_quantize_cuda(x, q)
+    torch.cuda.synchronize()
+    for lo in range(0, wb * 8, 1 << 24):  # the plain version a slice at a time
+        hi = min(lo + (1 << 24), wb * 8)
+        assert torch.equal(got[:, :, lo // 8:hi // 8], je.fdct_quantize_plain(x[:, :, lo:hi], q))
 
 
 def test_out_buffers_and_refused_tables(cuda):

@@ -8,6 +8,7 @@ turns, on one NVIDIA GPU.
     python3 chain_ab.py --tiled build/other
     python3 chain_ab.py --blur build/other
     python3 chain_ab.py --dct build/other
+    python3 chain_ab.py --engine build/other
 
 Runs four processes one after another, each on one tree: OTHER, THIS,
 THIS, OTHER. Each builds its tree's kernels (into that tree's ``build/``).
@@ -44,10 +45,13 @@ reads K6's and K7's ptxas report from the tree's build log and their SASS
 (``cuobjdump -sass`` of the tree's library): static instructions, and
 instructions a sample, which is that times the threads a launch runs
 (grid and block from a torch.profiler trace) over its samples, as neither
-kernel loops. Prints one JSON line a run and writes them to
+kernel loops. With ``--engine`` each runs its tree's ``chip_smoke.py``
+phase 19 (the heterogeneous engine's runs over the 5000-image 320x240
+stream: approach 1 and 2, the calibrations, the fleet, and the 115 MB
+transfers). Prints one JSON line a run and writes them to
 ``build/chain_ab/chain_ab.jsonl`` (``chain_ab_stages.jsonl``,
-``chain_ab_tiled.jsonl``, ``chain_ab_blur.jsonl``, ``chain_ab_dct.jsonl``);
-exits non-zero if a run fails.
+``chain_ab_tiled.jsonl``, ``chain_ab_blur.jsonl``, ``chain_ab_dct.jsonl``,
+``chain_ab_engine.jsonl``); exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -358,7 +362,8 @@ def dct(cs, card: str) -> dict:
 def one(root: str, mode: str) -> dict:
     """One tree's run, in this process: ``root``'s own package and script;
     ``mode`` is "sweep" (the main paths and CHAINS), "paths", "stages",
-    "tiled-sweep" (phase 14 and the K5 stages), "tiled", "blur" or "dct"."""
+    "tiled-sweep" (phase 14 and the K5 stages), "tiled", "blur", "dct" or
+    "engine"."""
     root = os.path.abspath(root)
     sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
     os.chdir(root)
@@ -383,6 +388,9 @@ def one(root: str, mode: str) -> dict:
         return res
     if mode == "dct":
         res.update(dct(cs, card))
+        return res
+    if mode == "engine":
+        res.update(cs.phase_engine(card))
         return res
     for phase, name in (("7", "chain"), ("8", "denoise")):
         res[name] = cs.phase_main_path(card, phase, name)["ms"]
@@ -414,7 +422,7 @@ def main() -> int:
         return 0
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    known = {"--stages", "--tiled", "--blur", "--dct"}
+    known = {"--stages", "--tiled", "--blur", "--dct", "--engine"}
     if len(args) != 1 or len(flags) > 1 or not set(flags) <= known:
         raise SystemExit(__doc__)
     other = os.path.abspath(args[0])
@@ -429,6 +437,7 @@ def main() -> int:
         "--tiled": (("tiled-sweep", "tiled-sweep", "tiled", "tiled"), "chain_ab_tiled.jsonl"),
         "--blur": (("blur",) * 4, "chain_ab_blur.jsonl"),
         "--dct": (("dct",) * 4, "chain_ab_dct.jsonl"),
+        "--engine": (("engine",) * 4, "chain_ab_engine.jsonl"),
     }.get(flag, (("sweep", "sweep", "paths", "paths"), "chain_ab.jsonl"))
     for root, mode in zip((other, HERE, HERE, other), modes):
         t0 = time.perf_counter()

@@ -118,6 +118,25 @@ The byte-level serving round trip is not driven here: the card's machine
 has no libjpeg (no ``jpeglib.h``, no ``libjpeg.so``), which the host
 entropy layer needs; phase 1 prints what it finds.
 
+19. The reference's programs: the heterogeneous engine
+    (``runtime/engine.py``, ``runtime/fleet.py``) over a host-CPU lane (the
+    plain PyTorch rows chain) and the card, on the reference's stream of
+    5000 images of 320x240x3 (1.15 GB): the first 500 distinct random
+    images (seeded), the rest replicated. (a) approach 1 ``gpu`` at batch
+    500 and 35; (b) approach 1 ``both`` at ratio 0.5, then at the ratio
+    ``calibrate_ratio`` finds on 300 images; (c) approach 1 ``both`` with
+    the greedy scheduler; (d) approach 2 (blur3) at 0.5 and at its
+    calibrated ratio; (e) approach 2 ``chain`` at batch 35 (K2 after the
+    relayout); (f) a two-lane ``FleetEngine`` (cpu, cuda:0), greedy, over
+    1000 images. A line a run: wall ms and img/s, each lane's images and
+    in/kernel/out ms, the imbalance, the launches over that run alone
+    (K1's rows entry for blur3, K2 for chain, one a CUDA-lane batch and
+    one a warm-up shape; no other kernel), and batch 0 against the plain
+    chain on the card (held against the NumPy oracle on 100 images),
+    seams included: max_abs_err must be 0. For the record, one 115 MB
+    batch to the card and back through new pageable memory and through
+    reused pinned memory (the CUDA lane's staging), and the phase's seconds.
+
 Then one JSON line of per-kernel results (each kernel's launches on its
 main path, its worst error against the plain version, its time and the
 plain version's a pass, and its bound: the larger of the bytes it must move
@@ -139,6 +158,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 NUM_IMAGES = 5000
@@ -1288,6 +1308,201 @@ def phase_codec_main_paths(card: str) -> dict:
             "bounds": bounds}
 
 
+# Phase 19: the reference's programs (its stream: 5000 images of 320x240x3).
+A_H, A_W, A_DISTINCT = 240, 320, 500
+# Images of batch 0 held against the NumPy oracle itself; the whole of
+# batch 0 is held against the plain chain on the card, which is held
+# against the oracle on these.
+A_ORACLE_IMAGES = 100
+
+
+class SeededStream:
+    """``num_images`` images of 240x320x3 in batches: the first 500 distinct
+    random images (seeded numpy), the rest replicate
+    ``checker_image(240, 320, 3, seed=0)`` as the reference's stream does."""
+
+    def __init__(self, distinct, num_images: int, batch_size: int):
+        from hipe_tpu_torch.runtime.stream import batch_sizes
+        from hipe_tpu_torch.utils.images import checker_image
+
+        self.distinct = distinct
+        self.image = checker_image(A_H, A_W, CHANNELS, seed=0)
+        self.sizes = batch_sizes(num_images, batch_size)
+
+    def batch_shapes(self) -> list[tuple]:
+        return [(bc, A_H, A_W, CHANNELS) for bc in self.sizes]
+
+    def __iter__(self):
+        start = 0
+        for bc in self.sizes:
+            head = self.distinct[start:start + bc]
+            tail = np.broadcast_to(self.image, (bc - len(head),) + self.image.shape)
+            yield head if len(tail) == 0 else tail if len(head) == 0 else np.concatenate(
+                [head, tail])
+            start += bc
+
+
+def lane_text(name: str, c) -> str:
+    return (f"{name} {c.images} img in {c.in_ms:.2f} kernel {c.kernel_ms:.2f} "
+            f"out {c.out_ms:.2f} ms")
+
+
+def cuda_lane_batches(cfg, sizes: list[int], accel_images: int) -> tuple[int, int]:
+    """(batches, warm-up shapes) the CUDA lane of a two-lane run takes: one
+    launch of the path's kernel each."""
+    from hipe_tpu_torch.parallel.partitioner import split_images
+
+    if cfg.approach == 2:
+        return len(sizes), len(set(sizes))
+    if cfg.scheduler == "greedy":
+        if accel_images % cfg.batch_size:
+            raise AssertionError("a greedy run here takes whole batches only")
+        return accel_images // cfg.batch_size, len(set(sizes))
+    acc = [bc if cfg.mode == "gpu" else split_images(bc, cfg.gpu_ratio)[1] for bc in sizes]
+    return sum(1 for n in acc if n), len({n for n in acc if n})
+
+
+def phase_engine(card: str) -> dict:
+    """Phase 19: approach 1 and 2 and the fleet over a host-CPU lane and the
+    card; each run's launches, taken over that run alone, and its batch 0
+    against the plain chain (blur3: and the NumPy oracle)."""
+    from hipe_tpu_torch.models import pipelines as plib
+    from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
+    from hipe_tpu_torch.parallel.autotune import calibrate_ratio
+    from hipe_tpu_torch.parallel.partitioner import imbalance_pct
+    from hipe_tpu_torch.runtime.engine import Engine, EngineConfig
+    from hipe_tpu_torch.runtime.fleet import FleetEngine, LaneSpec
+    from hipe_tpu_torch.runtime.stream import batch_sizes
+    from hipe_tpu_torch.utils.images import checker_image
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    distinct = np.random.default_rng(19).integers(0, 256, (A_DISTINCT, A_H, A_W, CHANNELS),
+                                                  dtype=np.uint8)
+    # The plain chains on the card over the 500 distinct images, and the
+    # NumPy oracle over the first A_ORACLE_IMAGES (as (H, W, B*C) planes).
+    x = torch.from_numpy(distinct).to(dev)
+    want = {name: plib.get(name)(x).cpu().numpy() for name in ("blur3", "chain")}
+    del x
+    head = distinct[:A_ORACLE_IMAGES].transpose(1, 2, 0, 3).reshape(A_H, A_W, -1)
+    oracle = gaussian_blur_int_oracle(head, 1).reshape(A_H, A_W, A_ORACLE_IMAGES, CHANNELS)
+    oracle_err = max_abs_err(torch.from_numpy(oracle.transpose(2, 0, 1, 3)),
+                             torch.from_numpy(want["blur3"][:A_ORACLE_IMAGES]))
+    if oracle_err:
+        raise AssertionError(f"the plain blur3 on the card != the NumPy oracle: {oracle_err}")
+    print(f"[19 engine] {NUM_IMAGES} images of {A_W}x{A_H}x{CHANNELS}, the first "
+          f"{A_DISTINCT} distinct (seeded), the rest replicated; batch 0 held against the "
+          f"plain chain on the card, which equals the NumPy oracle on {A_ORACLE_IMAGES} "
+          f"images; torch {torch.get_num_threads()} intra-op threads on {os.cpu_count()} "
+          f"cores [{card}]", flush=True)
+
+    calibrated = {}
+    results = {}
+
+    def calibrate(approach: int) -> float:
+        base = EngineConfig(approach=approach, mode="both", batch_size=100, num_images=300)
+        res = calibrate_ratio(base, checker_image(A_H, A_W, CHANNELS, seed=0))
+        calibrated[approach] = res
+        print(f"[19 calibrate A{approach}] history (ratio, imbalance %) "
+              f"{[(round(r, 4), round(i, 2)) for r, i in res.history]} -> {res.ratio:.4f} "
+              f"[{card}]", flush=True)
+        return res.ratio
+
+    def run(label: str, num_images: int = NUM_IMAGES, **kw) -> dict:
+        cfg = EngineConfig(num_images=num_images, **kw)
+        wrappers = reset_counts()
+        eng = Engine(cfg)
+        stats = eng.run(stream=SeededStream(distinct, num_images, eng.config.batch_size))
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        cfg = eng.config
+        kernel = "K1 rows" if eng.pipeline.single_gaussian else "K2"
+        sizes = batch_sizes(num_images, cfg.batch_size)
+        batches, warmups = cuda_lane_batches(cfg, sizes, stats.accel.images)
+        if counts[kernel] != batches + warmups or any(
+                n for k, n in counts.items() if k != kernel):
+            raise AssertionError(f"{label}: launches {counts}, expected {kernel} "
+                                 f"{batches} + {warmups} warm-up and no other")
+        got = eng.first_output
+        err = max_abs_err(torch.from_numpy(got),
+                          torch.from_numpy(want[eng.pipeline.name][:len(got)]))
+        if err:
+            raise AssertionError(f"{label}: batch 0 != the plain chain: max-abs {err}")
+        imb = imbalance_pct(stats.cpu.total_ms, stats.accel.total_ms)
+        split = (f"; split row {stats.split_row}, halo {stats.halo}"
+                 if cfg.approach == 2 else "")
+        print(f"[19 {label}] ratio {cfg.gpu_ratio:.4f} batch {cfg.batch_size}: wall "
+              f"{stats.wall_ms:.2f} ms, {stats.images_per_sec:.1f} img/s; "
+              f"{lane_text('cpu', stats.cpu)}; {lane_text('gpu', stats.accel)}; imbalance "
+              f"{imb:.1f}%{split}; {kernel} launches {counts[kernel]} ({batches} batches + "
+              f"{warmups} warm-up); max_abs_err {err} over {len(got)} images [{card}]",
+              flush=True)
+        results[label] = {"wall_ms": stats.wall_ms, "img_per_s": stats.images_per_sec,
+                          "kernel": kernel, "launches": counts[kernel], "err": err,
+                          "ratio": cfg.gpu_ratio}
+        return results[label]
+
+    run("a A1 gpu b500", approach=1, mode="gpu", batch_size=500)
+    run("a A1 gpu b35", approach=1, mode="gpu", batch_size=35)
+    run("b A1 both 0.5", approach=1, mode="both", gpu_ratio=0.5, batch_size=500)
+    run("b A1 both calibrated", approach=1, mode="both", gpu_ratio=calibrate(1),
+        batch_size=500)
+    run("c A1 both greedy", approach=1, mode="both", scheduler="greedy", batch_size=500)
+    run("d A2 0.5", approach=2, gpu_ratio=0.5, batch_size=500)
+    run("d A2 calibrated", approach=2, gpu_ratio=calibrate(2), batch_size=500)
+    run("e A2 chain", approach=2, gpu_ratio=0.9, batch_size=35, pipeline="chain")
+
+    # (f) the fleet: a host-CPU lane and the card, greedy, 1000 images.
+    wrappers = reset_counts()
+    fleet = FleetEngine([LaneSpec("cpu", name="cpu"), LaneSpec(dev, name="cuda:0")],
+                        approach=1, batch_size=100, num_images=1000, scheduler="greedy")
+    fs = fleet.run(stream=SeededStream(distinct, 1000, 100))
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    batches, warmups = fs.lanes[1].images // 100, 1
+    if counts["K1 rows"] != batches + warmups or any(
+            n for k, n in counts.items() if k != "K1 rows"):
+        raise AssertionError(f"fleet: launches {counts}, expected K1 rows {batches} + 1")
+    err = max_abs_err(torch.from_numpy(fleet.first_output),
+                      torch.from_numpy(want["blur3"][:100]))
+    if err:
+        raise AssertionError(f"fleet: batch 0 != the plain chain: max-abs {err}")
+    print(f"[19 f fleet greedy] {len(fs.lanes)} lanes, batch 100, 1000 images: wall "
+          f"{fs.wall_ms:.2f} ms, {fs.images_per_sec:.1f} img/s; "
+          f"{'; '.join(lane_text(c.name, c) for c in fs.lanes)}; imbalance "
+          f"{fs.imbalance_pct():.1f}%; K1 rows launches {counts['K1 rows']} ({batches} "
+          f"batches + 1 warm-up); max_abs_err {err} over 100 images [{card}]", flush=True)
+    results["f fleet greedy"] = {"wall_ms": fs.wall_ms, "img_per_s": fs.images_per_sec,
+                                 "kernel": "K1 rows", "launches": counts["K1 rows"],
+                                 "err": err}
+
+    # For the record: one batch of 500 images (115 MB) to the card and back:
+    # from and into pageable memory (new host memory each time, as a plain
+    # `.to()`/`.cpu()` makes), and from and into reused pinned memory, which
+    # the CUDA lane stages through.
+    batch = np.ascontiguousarray(distinct)
+    pageable = torch.from_numpy(batch)
+    pinned = pageable.pin_memory()
+    on_card = pageable.to(dev)
+    back = torch.empty(batch.shape, dtype=torch.uint8, pin_memory=True)
+    xfer = {"h2d pageable": cuda_ms(lambda: pageable.to(dev), reps=5),
+            "h2d pinned": cuda_ms(lambda: pinned.to(dev, non_blocking=True), reps=5),
+            "d2h pageable": cuda_ms(lambda: on_card.cpu(), reps=5),
+            "d2h pinned": cuda_ms(lambda: back.copy_(on_card, non_blocking=True), reps=5)}
+    if not (back.is_pinned() and pinned.is_pinned()):
+        raise AssertionError("the staging buffers are not pinned")
+    gb = batch.nbytes / 1e9
+    print(f"[19 transfers] one batch of {A_DISTINCT} images ({batch.nbytes} bytes): "
+          + ", ".join(f"{k} {v:.3f} ms ({gb / v * 1e3:.1f} GB/s)" for k, v in xfer.items())
+          + f" [{card}]", flush=True)
+    del pinned, on_card, back
+    secs = time.perf_counter() - t_phase
+    print(f"[19 engine] phase {secs:.1f} s [{card}]", flush=True)
+    return {"runs": results, "secs": secs, "transfers": xfer,
+            "k1_launches": sum(r["launches"] for r in results.values()
+                               if r["kernel"] == "K1 rows"),
+            "k2_launches": sum(r["launches"] for r in results.values()
+                               if r["kernel"] == "K2")}
+
+
 def main() -> int:
     from hipe_tpu_torch.ops.blur import FILTER_RADIUS, GAUSSIANS
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
@@ -1328,6 +1543,7 @@ def main() -> int:
     k6_err = phase_k6_vs_plain(card)
     k7_err = phase_k7_vs_plain(card)
     codec = phase_codec_main_paths(card)
+    engine = phase_engine(card)
     transcode = codec["paths"]["transcode"]
     codec_err = max(p["err"] for p in codec["paths"].values())
     # No PyTorch call computes these functions: none takes uint8 planes with
@@ -1367,6 +1583,8 @@ def main() -> int:
         "large_ms": large_blur3["own"]["K1"]["ms"],
         "large_k4_ms": large_blur3["other_ms"],
         "device_idle": blur3["idle"],
+        # Phase 19: K1's rows entry on the engine's CUDA lane, every blur3 run.
+        "engine_launches": engine["k1_launches"],
     }, {
         "name": "chain_planar_u8",
         "route": "cuda",
@@ -1381,6 +1599,8 @@ def main() -> int:
         "bound_by": chain["bound_by"],
         "library_ms": no_library,
         "device_idle": chain["idle"],
+        # Phase 19: K2 after the relayout on the engine's CUDA lane (A2 chain).
+        "engine_launches": engine["k2_launches"],
     }, {
         "name": "rank_chain_planar_u8",
         "route": "cuda",

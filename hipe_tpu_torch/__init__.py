@@ -31,7 +31,14 @@ easy to find:
 - :mod:`hipe_tpu_torch.runtime.device_stream` — ``DeviceStreamRunner``,
   the device-resident stream (5000 images of 256x256, or large frames);
 - :mod:`hipe_tpu_torch.runtime.serve` — ``ServingPipeline``, JPEG decode ->
-  filter -> encode in four placements of the codec.
+  filter -> encode in four placements of the codec;
+- :mod:`hipe_tpu_torch.runtime.engine`, :mod:`hipe_tpu_torch.runtime.fleet`
+  — the reference's heterogeneous programs over a host-CPU lane and a CUDA
+  lane (``Engine``/``EngineConfig``: approach 1 and 2; ``FleetEngine``/
+  ``LaneSpec``: N weighted lanes), with :mod:`hipe_tpu_torch.parallel`
+  (partitioner, device discovery, ratio calibration),
+  :mod:`hipe_tpu_torch.profiling` (stage clocks, the 8-section report, the
+  CSV corpus) and :mod:`hipe_tpu_torch.runtime.stream` (the input streams).
 
 The package imports ``torch`` and never ``jax``. Importing it loads nothing
 heavy: the exports below resolve on first use.
@@ -45,6 +52,14 @@ def __getattr__(name):
         from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 
         return DeviceStreamRunner
+    if name in ("Engine", "EngineConfig"):
+        from hipe_tpu_torch.runtime import engine
+
+        return getattr(engine, name)
+    if name in ("FleetEngine", "LaneSpec"):
+        from hipe_tpu_torch.runtime import fleet
+
+        return getattr(fleet, name)
     if name == "ServingPipeline":
         from hipe_tpu_torch.runtime.serve import ServingPipeline
 

@@ -28,16 +28,34 @@ encoded by the port's host codec at ``--quality``. The host codec is
 libjpeg, built at first use; where g++ or libjpeg is missing, ``serve``
 fails and says so. ``--device cpu`` runs it on the CPU, with the kernels'
 plain versions.
+
+``approach1`` and ``approach2`` are the reference's two programs
+(``heterogeneous_blur [cpu|gpu|both] [gpu_ratio] [batch_size]`` and
+``split_image_blur [gpu_ratio] [batch_size]``) over a host-CPU lane (the
+plain PyTorch chain) and a CUDA lane (the kernels), with the reference's
+positional grammar, warn-and-default validation and 8-section report::
+
+    python -m hipe_tpu_torch.cli approach1 gpu 1.0 500 --num-images 5000
+    python -m hipe_tpu_torch.cli approach1 both 0.9 500 --scheduler greedy
+    python -m hipe_tpu_torch.cli approach2 0.9 35 --pipeline chain
+
+Their stream replicates ``checker_image(240, 320, 3, seed=0)``, the
+reference's 320x240 geometry, or ``--image`` (JPEG paths, comma-separated
+for a mixed-resolution stream; needs libjpeg). Modes ``both`` and ``gpu``
+need a CUDA card and fail without one; ``tpu`` and ``accel`` are aliases
+of ``gpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import subprocess
 import sys
 
 IMAGE_NAME = "checker_image(256,256,3,seed=0)"
+APPROACH_IMAGE_NAME = "checker_image(240,320,3,seed=0)"
 
 
 def gpu_name_and_power_limit() -> str:
@@ -57,6 +75,11 @@ def _add_stage_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("pipeline_name", nargs="?", default="blur3",
                    help="a pipeline, a stage name, or a comma-joined chain "
                         "of stages")
+    _add_register_flags(p)
+
+
+def _add_register_flags(p: argparse.ArgumentParser) -> None:
+    """--kernel, --lut and --rank: register stages by hipe_tpu's grammar."""
     p.add_argument(
         "--kernel", action="append", metavar="NAME=TAPS[:SCALE[:OFFSET]]",
         help="register a custom convolution kernel as a chainable filter "
@@ -91,6 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--passes", type=int, default=10)
     st.add_argument("--no-autotune", action="store_true",
                     help="skip the measured rows_per_block selection")
+    st.add_argument("--retune", action="store_true",
+                    help="ignore the stored autotune winner and sweep again")
     st.add_argument("--json", action="store_true",
                     help="print one JSON result line")
     st.add_argument("--device", default="cuda",
@@ -128,7 +153,58 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default="cuda",
                     help="device to run on (default: cuda; cpu runs the plain "
                          "versions)")
+    _add_approach_parsers(sub)
     return p
+
+
+def _add_approach_parsers(sub) -> None:
+    """``approach1`` and ``approach2``: hipe_tpu's grammar (its
+    ``--accel-path`` excepted: the CUDA lane always runs the kernels)."""
+    from hipe_tpu_torch.parallel import partitioner as pt
+
+    a1 = sub.add_parser("approach1", help="image-level distribution over a "
+                                          "host-CPU lane and a CUDA lane")
+    a1.add_argument("mode", nargs="?", default="both",
+                    choices=["both", "cpu", "gpu", "tpu", "accel"])
+    a1.add_argument("gpu_ratio", nargs="?", type=float, default=pt.DEFAULT_RATIO)
+    a1.add_argument("batch_size", nargs="?", type=int, default=pt.DEFAULT_BATCH)
+    a2 = sub.add_parser("approach2", help="split-image distribution (rows, "
+                                          "with a halo) over both lanes")
+    a2.add_argument("gpu_ratio", nargs="?", type=float, default=pt.DEFAULT_RATIO)
+    a2.add_argument("batch_size", nargs="?", type=int, default=pt.DEFAULT_BATCH)
+    a2.add_argument("--save-output", default=None, metavar="PATH",
+                    help="save the reassembled image 0 of batch 0 as a JPEG "
+                         "(SAVE_IMAGE analog; needs libjpeg)")
+    for sp in (a1, a2):
+        sp.add_argument("--image", default=None,
+                        help=f"input JPEG (default: {APPROACH_IMAGE_NAME}, the "
+                             "reference's 320x240 geometry); comma-separate "
+                             "paths for a mixed-resolution stream. Needs libjpeg")
+        sp.add_argument("--num-images", type=int, default=pt.NUM_IMAGES)
+        sp.add_argument("--pipeline", default="blur3",
+                        help="a pipeline, a stage name, or a comma-joined "
+                             "chain of stages")
+        sp.add_argument("--no-profile", action="store_true",
+                        help="skip stage timing (one sync a batch)")
+        sp.add_argument("--pipeline-depth", type=int, default=1,
+                        help="batches in flight per lane (1 = the reference's "
+                             "per-batch barrier; 2 = double-buffered)")
+        sp.add_argument("--scheduler", default="static", choices=["static", "greedy"],
+                        help="static = fixed-ratio split (reference); greedy = "
+                             "batch-level work stealing (approach 1 'both' only)")
+        sp.add_argument("--elastic", action="store_true",
+                        help="greedy only: survive a lane failure by "
+                             "redistributing its batches to healthy lanes")
+        sp.add_argument("--csv", default=None, metavar="PATH",
+                        help="append a per_run.csv-schema row")
+        sp.add_argument("--run-index", type=int, default=1)
+        sp.add_argument("--factor", type=float, default=None,
+                        help="contrast/color/sharpness strength: not ported yet")
+        sp.add_argument("--cutoff", type=int, nargs="+", default=None, metavar="PCT",
+                        help="autocontrast trim percent(s): not ported yet")
+        sp.add_argument("--preserve-tone", action="store_true",
+                        help="autocontrast preserve_tone mode: not ported yet")
+        _add_register_flags(sp)
 
 
 def _register_cli_kernels(specs) -> str | None:
@@ -199,9 +275,9 @@ def _register_cli_ranks(specs) -> str | None:
     return None
 
 
-def _pipeline_of(args):
-    """Register the --kernel/--lut/--rank stages and resolve the pipeline;
-    prints one error line and returns None on a bad name or spec."""
+def _pipeline_of(args, spec: str):
+    """Register the --kernel/--lut/--rank stages and resolve the pipeline
+    ``spec``; prints one error line and returns None on a bad name or spec."""
     from hipe_tpu_torch.models import pipelines as plib
 
     err = (_register_cli_kernels(args.kernel) or _register_cli_luts(args.lut)
@@ -209,7 +285,6 @@ def _pipeline_of(args):
     if err:
         print(err, file=sys.stderr)
         return None
-    spec = args.pipeline_name
     try:
         return plib.get(tuple(spec.split(",")) if "," in spec else spec)
     except (KeyError, ValueError) as e:
@@ -225,7 +300,7 @@ def _main_stream(args) -> int:
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
     from hipe_tpu_torch.utils.images import checker_image
 
-    pipeline = _pipeline_of(args)
+    pipeline = _pipeline_of(args, args.pipeline_name)
     if pipeline is None:
         return 1
     device = torch.device(args.device)
@@ -244,10 +319,12 @@ def _main_stream(args) -> int:
     runner = DeviceStreamRunner(pipeline, num_images=args.num_images,
                                 image=image, device=device)
     if not args.no_autotune:
-        timings = runner.autotune()
+        timings = runner.autotune(retune=args.retune)
         for label, t in sorted(timings.items(), key=lambda kv: kv[1]):
             print(f"  autotune {label:22s} {t * 1e3:8.3f} ms/pass")
-        print(f"Chosen config: {runner.tuning['chosen']}")
+        hit = (f" (stored in {runner.tune_cache_path}, sweep skipped)"
+               if runner.tuning["cache_hit"] else "")
+        print(f"Chosen config: {runner.tuning['chosen']}{hit}")
         for label, exc in runner.tuning["skipped"].items():
             print(f"  autotune skipped {label}: {exc}")
     err = runner.verify_max_abs_err()
@@ -284,7 +361,7 @@ def _main_serve(args) -> int:
     from hipe_tpu_torch.runtime.serve import ServingPipeline
     from hipe_tpu_torch.utils.images import checker_image
 
-    pipeline = _pipeline_of(args)
+    pipeline = _pipeline_of(args, args.pipeline_name)
     if pipeline is None:
         return 1
     device = torch.device(args.device)
@@ -362,13 +439,118 @@ def _main_serve(args) -> int:
     return 0 if n_out == args.num_images else 1
 
 
+def _main_approach(args) -> int:
+    """approach1 / approach2: the heterogeneous engine over a stream."""
+    import numpy as np
+
+    from hipe_tpu_torch.parallel import mesh as meshlib
+    from hipe_tpu_torch.parallel import partitioner as pt
+    from hipe_tpu_torch.profiling.report import CSV_COLUMNS, to_csv_row
+    from hipe_tpu_torch.runtime.engine import Engine, EngineConfig
+    from hipe_tpu_torch.utils.images import checker_image
+
+    if args.factor is not None or args.cutoff is not None or args.preserve_tone:
+        raise ValueError(
+            "--factor, --cutoff and --preserve-tone configure the global-statistics "
+            "pipelines (contrast, color, sharpness, autocontrast), which "
+            "hipe_tpu_torch does not carry yet; ROADMAP.md lists them (item 7)")
+    pipeline = _pipeline_of(args, args.pipeline)
+    if pipeline is None:
+        return 1
+    approach = 1 if args.command == "approach1" else 2
+    cfg = EngineConfig(
+        approach=approach, mode=getattr(args, "mode", "both"),
+        gpu_ratio=args.gpu_ratio, batch_size=args.batch_size,
+        num_images=args.num_images, pipeline=pipeline,
+        profile=not args.no_profile, pipeline_depth=args.pipeline_depth,
+        scheduler=args.scheduler, elastic=args.elastic,
+        save_output=getattr(args, "save_output", None), verbose=True,
+    ).validate()
+    if args.image is None:
+        paths, images = [APPROACH_IMAGE_NAME], [checker_image(240, 320, 3, seed=0)]
+    else:
+        from hipe_tpu_torch.io_.jpeg import decode_file
+
+        paths = args.image.split(",")
+        try:
+            images = [np.ascontiguousarray(decode_file(p)) for p in paths]
+        except (OSError, ValueError) as e:
+            print(f"Error: cannot load input image: {e}", file=sys.stderr)
+            return 1
+        except RuntimeError as e:  # the host codec's build (no g++ or libjpeg)
+            print(f"Error: {str(e).splitlines()[0]}", file=sys.stderr)
+            return 1
+    n_batches = pt.num_batches(cfg.num_images, cfg.batch_size)
+    name = "HETEROGENEOUS" if approach == 1 else "SPLIT-IMAGE"
+    print(f"========== {name} CONFIGURATION ==========")
+    print(f"Input: {args.image or APPROACH_IMAGE_NAME}")
+    print(f"Number of images in stream: {cfg.num_images}")
+    print(f"Batch size: {cfg.batch_size} images")
+    print(f"Number of batches: {n_batches}")
+    print(f"Pipeline: {pipeline.name} (stages {', '.join(pipeline.filters)})")
+    if approach == 1:
+        print(f"Mode: {cfg.mode}")
+        print(f"GPU ratio: {cfg.gpu_ratio * 100:.1f}% GPU, "
+              f"{(1 - cfg.gpu_ratio) * 100:.1f}% CPU")
+    else:
+        print(f"GPU ratio: {cfg.gpu_ratio * 100:.1f}% (rows to the GPU)")
+    print("================================================\n")
+    image = images[0]
+    h, w, c = image.shape
+    for p, im in zip(paths, images):
+        ih, iw, ic = im.shape
+        print(f"Original image loaded: {iw}x{ih}, {ic} channels ({p})")
+    print(f"Size of one image: {image.nbytes} bytes ({image.nbytes / 1024.0:.2f} KB)\n")
+    print(meshlib.discover().describe())
+    if approach == 2:
+        rs = pt.row_split(h, cfg.gpu_ratio, halo=pipeline.radius)
+        print("\nSplit configuration:")
+        print(f"  Split row: {rs.split_row} (CPU: rows 0-{rs.split_row - 1}, "
+              f"GPU: rows {rs.split_row}-{h - 1})")
+        print(f"  CPU: {rs.cpu_input_rows} input rows (inc. halo), "
+              f"{rs.cpu_output_rows} output rows")
+        print(f"  GPU: {rs.gpu_input_rows} input rows (inc. halo), "
+              f"{rs.gpu_output_rows} output rows")
+    try:
+        engine = Engine(cfg)
+    except RuntimeError as e:
+        # Modes 'both' and 'gpu' need a card; the CPU lane never stands in.
+        raise SystemExit(f"{e} (mode {cfg.mode} runs a CUDA lane; "
+                         "torch.cuda.is_available() is False)") from e
+    print(f"\nStarting batch processing of {cfg.num_images} images in "
+          f"{n_batches} batches...")
+    if len(images) > 1:
+        from hipe_tpu_torch.runtime.stream import MixedResolutionStream
+
+        stats = engine.run(stream=MixedResolutionStream(images, cfg.num_images,
+                                                        cfg.batch_size))
+    else:
+        stats = engine.run(image=image)
+    print("\nAll batches finished!")
+    print(engine.report())
+    print(f"Card: {gpu_name_and_power_limit()}")
+    if args.csv:
+        row = to_csv_row(stats, run=args.run_index, file=args.csv)
+        try:
+            with open(args.csv) as f:
+                write_header = not f.readline().strip()
+        except FileNotFoundError:
+            write_header = True
+        with open(args.csv, "a", newline="") as f:
+            wtr = csv.DictWriter(f, fieldnames=CSV_COLUMNS)
+            if write_header:
+                wtr.writeheader()
+            wtr.writerow(row)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "stream":
         return _main_stream(args)
     if args.command == "serve":
         return _main_serve(args)
-    raise AssertionError(args.command)
+    return _main_approach(args)
 
 
 if __name__ == "__main__":

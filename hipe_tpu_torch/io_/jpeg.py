@@ -170,6 +170,16 @@ def decode_batch(datas: list[bytes], num_threads: int | None = None) -> np.ndarr
     return out
 
 
+def decode_file(path: str) -> np.ndarray:
+    """Decode a JPEG file to HWC uint8 (``hipe_tpu``'s ``decode_file``
+    without its PIL route for other formats, which raises here)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{path} is not a JPEG file (no SOI marker)")
+    return decode_bytes(data)
+
+
 def _run_encode(call, cap0: int) -> bytes:
     """Run a native encode call; on rc=3 (did not fit) retry at the exact
     size the C side reports in out_len."""
@@ -193,6 +203,17 @@ def encode_bytes(img: np.ndarray, quality: int = 90) -> bytes:
         lambda out, cap, out_len: lib.hipe_jpeg_encode(
             _as_u8p(img), w, h, c, quality, out, cap, out_len),
         w * h * c + 65536)
+
+
+def encode_file(img: np.ndarray, path: str, quality: int = 90) -> None:
+    """Save HWC uint8 as a JPEG file (``hipe_tpu``'s ``encode_file`` for
+    ``.jpg``/``.jpeg``/no extension; other formats raise here)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in ("", ".jpg", ".jpeg"):
+        raise ValueError(f"{path}: only JPEG output is supported (.jpg, .jpeg)")
+    data = encode_bytes(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 # ---- Entropy-only decode and encode (the host half of the device codec) ----

@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -30,6 +31,9 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "hipe_tpu_torch"
 LIB_NAME = "libhipe_tpu_torch.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# Serializes the first build: the objects are named by process id, so two
+# threads of one process (the engine's lanes) must not build at once.
+_BUILD_LOCK = threading.Lock()
 
 
 def sources() -> list[Path]:
@@ -105,6 +109,11 @@ def build() -> Path:
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call."""
+def _load() -> ctypes.CDLL:
     return ctypes.CDLL(str(build()))
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call (by one thread)."""
+    with _BUILD_LOCK:
+        return _load()

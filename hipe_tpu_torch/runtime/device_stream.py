@@ -19,15 +19,27 @@ a warm-up; the stream (983 MB at 5000 x 256x256x3) is 20x the H100's 50 MB
 L2, so every pass runs cold, as it would in service. The kernels index the
 stream with 64-bit offsets, so it may exceed 2^31 bytes (100 RGB frames of
 4000x2250 are 2.7 GB).
+
+The autotune's winner is kept on disk (``tune_cache_path``, by default
+``build/hipe_tpu_torch/autotune.json``), keyed by card, pipeline, shape,
+stream length and knob: the next run times the stored config once and
+sweeps again only if that time exceeds the stored one by more than
+:data:`RETUNE_FACTOR`, or when asked to (``retune=True``, ``stream
+--retune``). This is ``hipe_tpu``'s persisted winner; its checks for a
+broken TPU compile service are not carried over.
 """
 
 from __future__ import annotations
+
+import json
+import os
+import sys
 
 import numpy as np
 import torch
 
 from hipe_tpu_torch.models import pipelines as plib
-from hipe_tpu_torch.ops import cuda_tiled
+from hipe_tpu_torch.ops import _build, cuda_tiled
 from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
 from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
 
@@ -38,6 +50,16 @@ ROWS_PER_BLOCK_CANDIDATES = (8, 16, 32, 64, 128)
 # columns; a shape whose block would exceed shared memory is skipped.
 TILE_ROWS_CANDIDATES = (8, 16, 32, 64)
 TILE_COLS_CANDIDATES = (128, 256, 512)
+# A stored winner is kept while its fresh time a pass stays within this
+# factor of the stored one (hipe_tpu's _RETUNE_FACTOR); beyond it the full
+# sweep runs again.
+RETUNE_FACTOR = 1.6
+_TUNE_CACHE_VERSION = 1
+
+
+def default_tune_cache_path() -> str:
+    """``build/hipe_tpu_torch/autotune.json`` beside the kernels' builds."""
+    return str(_build.BUILD_ROOT / "autotune.json")
 
 
 class DeviceStreamRunner:
@@ -51,6 +73,7 @@ class DeviceStreamRunner:
         image: np.ndarray | None = None,
         device: str | torch.device = "cuda",
         stream: np.ndarray | None = None,
+        tune_cache_path: str | None = None,
     ):
         self.pipeline = plib.get(pipeline)
         self.num_images = num_images
@@ -84,6 +107,7 @@ class DeviceStreamRunner:
         self.tiled = self.pipeline.routes_tiled(h, w)
         self.config = {"tile": None} if self.tiled else {"rows_per_block": None}
         self.tuning: dict | None = None
+        self.tune_cache_path = tune_cache_path or default_tune_cache_path()
 
     def _one_pass(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
         return self.pipeline.apply_planar(src, out=dst, **self.config)
@@ -127,7 +151,57 @@ class DeviceStreamRunner:
             out.append((f"cuda_tile{tile[0]}x{tile[1]}", {"tile": tile}, why))
         return out
 
-    def autotune(self, passes: int = 4, reps: int = 2) -> dict:
+    # ---- the autotune's winner on disk ----
+
+    def _tune_key(self) -> str:
+        h, w, c = self.shape
+        card = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                else self.device.type)
+        knob = next(iter(self.config))
+        return (f"{card}|{self.pipeline.name}:{','.join(self.pipeline.filters)}|"
+                f"{h}x{w}x{c}|n{self.num_images}|{knob}")
+
+    def _read_cache(self) -> dict:
+        try:
+            with open(self.tune_cache_path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            return {}
+        if not isinstance(data, dict) or data.get("version") != _TUNE_CACHE_VERSION:
+            return {}
+        return data.get("entries", {})
+
+    def _load_cached_config(self):
+        """(label, config, per_pass_s) stored for this key and still among
+        the sweep's runnable candidates, else None."""
+        ent = self._read_cache().get(self._tune_key())
+        if not isinstance(ent, dict):
+            return None
+        runnable = {label: cfg for label, cfg, why in self._configs() if why is None}
+        if ent.get("label") not in runnable:
+            return None
+        try:
+            return ent["label"], runnable[ent["label"]], float(ent["per_pass_s"])
+        except (KeyError, TypeError, ValueError):
+            return None
+
+    def _store_cached_config(self, label: str, per_pass_s: float) -> None:
+        entries = self._read_cache()
+        entries[self._tune_key()] = {"label": label, "per_pass_s": per_pass_s}
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(self.tune_cache_path)),
+                        exist_ok=True)
+            tmp = f"{self.tune_cache_path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump({"version": _TUNE_CACHE_VERSION, "entries": entries}, f,
+                          indent=1)
+            os.replace(tmp, self.tune_cache_path)
+        except OSError as e:
+            # The cache saves a sweep; a run never fails for it.
+            print(f"autotune: cannot store the winner in {self.tune_cache_path}: {e}",
+                  file=sys.stderr)
+
+    def autotune(self, passes: int = 4, reps: int = 2, *, retune: bool = False) -> dict:
         """Time each launch config of the pipeline's kernels; keep the fastest.
 
         The configs are ``rows_per_block`` values for K1/K2/K3 and tile
@@ -136,7 +210,33 @@ class DeviceStreamRunner:
         launch fails, is recorded in ``self.tuning["skipped"]`` with the
         reason; the sweep raises if none ran. The plain version is never a
         candidate.
+
+        The winner is stored at :attr:`tune_cache_path`; a stored winner is
+        timed once and kept unless that time exceeds the stored one by more
+        than :data:`RETUNE_FACTOR` (then the sweep runs again) or
+        ``retune`` is set. The stored time is the fastest seen, so
+        a slow drift cannot ratchet the threshold up.
+        ``self.tuning["cache_hit"]`` says which path ran.
         """
+        cached = None if retune else self._load_cached_config()
+        if cached is not None:
+            label, config, cached_t = cached
+            self.config = config
+            try:
+                t = self._measure_per_pass(passes=passes, reps=reps)
+            except RuntimeError as e:
+                print(f"autotune: stored config {label} failed ({e}); sweeping again",
+                      file=sys.stderr)
+            else:
+                if t <= cached_t * RETUNE_FACTOR:
+                    self.tuning = {"chosen": label, "per_pass_s": {label: t},
+                                   "skipped": {}, "cache_hit": True,
+                                   "cached_per_pass_s": cached_t}
+                    self._store_cached_config(label, min(t, cached_t))
+                    return {label: t}
+                print(f"autotune: stored config {label} regressed ({t * 1e3:.4f} ms "
+                      f"against {cached_t * 1e3:.4f} ms a pass); sweeping again",
+                      file=sys.stderr)
         timings: dict[str, float] = {}
         skipped: dict[str, str] = {}
         best_label, best_config, best_t = None, None, float("inf")
@@ -157,7 +257,8 @@ class DeviceStreamRunner:
             raise RuntimeError(f"no autotune config ran: {skipped}")
         self.config = best_config
         self.tuning = {"chosen": best_label, "per_pass_s": timings,
-                       "skipped": skipped}
+                       "skipped": skipped, "cache_hit": False}
+        self._store_cached_config(best_label, best_t)
         return timings
 
     def verify_max_abs_err(self) -> int:

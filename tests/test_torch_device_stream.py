@@ -119,12 +119,19 @@ def test_importing_the_port_imports_no_jax():
             "hipe_tpu_torch.ops.cuda_tiled, hipe_tpu_torch.models.pipelines, "
             "hipe_tpu_torch.ops._build, hipe_tpu_torch.io_.jpeg, "
             "hipe_tpu_torch.ops.jpeg_decode, hipe_tpu_torch.ops.jpeg_encode, "
-            "hipe_tpu_torch.ops.cuda_dct, hipe_tpu_torch.runtime.serve; "
+            "hipe_tpu_torch.ops.cuda_dct, hipe_tpu_torch.runtime.serve, "
+            "hipe_tpu_torch.runtime.engine, hipe_tpu_torch.runtime.fleet, "
+            "hipe_tpu_torch.runtime.stream, hipe_tpu_torch.parallel.autotune, "
+            "hipe_tpu_torch.parallel.mesh, hipe_tpu_torch.parallel.partitioner, "
+            "hipe_tpu_torch.profiling.events, hipe_tpu_torch.profiling.report, "
+            "hipe_tpu_torch.profiling.corpus, hipe_tpu_torch.utils.images; "
             "hipe_tpu_torch.DeviceStreamRunner, hipe_tpu_torch.PIPELINES, "
             "hipe_tpu_torch.filter_chain, hipe_tpu_torch.register_lut_filter, "
             "hipe_tpu_torch.register_rank_filter, "
             "hipe_tpu_torch.register_kernel_filter, hipe_tpu_torch.ServingPipeline, "
-            "hipe_tpu_torch.decode_coefficients, hipe_tpu_torch.encode_bytes_device; "
+            "hipe_tpu_torch.decode_coefficients, hipe_tpu_torch.encode_bytes_device, "
+            "hipe_tpu_torch.Engine, hipe_tpu_torch.EngineConfig, "
+            "hipe_tpu_torch.FleetEngine, hipe_tpu_torch.LaneSpec; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('hipe_tpu.') or m == 'hipe_tpu' "
             "for m in sys.modules), 'hipe_tpu imported'")

@@ -114,9 +114,9 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     CPU path, the device idle share; only K6, K7 and K1's rows entry may
     launch (a transcode pass: 3, 1, 3). K6's, K7's and K1's own times and
     those of the torch work between them split a transcode pass.
-The byte-level serving round trip is not driven here: the card's machine
-has no libjpeg (no ``jpeglib.h``, no ``libjpeg.so``), which the host
-entropy layer needs; phase 1 prints what it finds.
+The byte-level serving round trip needs libjpeg for the host entropy layer;
+the card's machine has none (no ``jpeglib.h``, no ``libjpeg.so``), so it is
+driven only where phase 1 finds it (phase 20).
 
 19. The reference's programs: the heterogeneous engine
     (``runtime/engine.py``, ``runtime/fleet.py``) over a host-CPU lane (the
@@ -136,6 +136,23 @@ entropy layer needs; phase 1 prints what it finds.
     seams included: max_abs_err must be 0. For the record, one 115 MB
     batch to the card and back through new pageable memory and through
     reused pinned memory (the CUDA lane's staging), and the phase's seconds.
+20. The serving options over phase 18's stream (5000 resident 4:2:0 q90
+    coefficient sets): ``ServingPipeline.decode_filter_fn`` and
+    ``transcode_fn`` (blur3) with ``decode_scale`` 2, 4 and 8,
+    ``decode_gray``, ``gray_output``, ``output_scale=2``,
+    ``resize_to=(144, 200)`` and ``decode_gray`` with a ``colorize`` table
+    from hex colours; the decode of 1000 CMYK and 1000 YCCK coefficient
+    sets K7 makes from four planes; the seven lossless transforms over the
+    stream. A line a path: ms a pass (CUDA events), the K6, K7 and K1
+    rows-entry launches over its passes alone (exactly those its options
+    need: K6 a component whose scaled DCT size is 8, K7 an output
+    component, K1 one; the transforms none), max_abs_err against the same
+    path with each kernel replaced by its plain version on the card, and
+    its first 16 images against the same path on CPU tensors (the reduced
+    IDCTs and the transforms among them): both must be 0. Where phase 1
+    finds libjpeg, also a byte-level ``serve --decode-scale 4 --gray`` and a
+    ``transform`` rot90/rot270 round trip; elsewhere a line says why not.
+    Then the phase's seconds.
 
 Then one JSON line of per-kernel results (each kernel's launches on its
 main path, its worst error against the plain version, its time and the
@@ -149,6 +166,7 @@ non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -1200,7 +1218,7 @@ def phase_codec_main_paths(card: str) -> dict:
     # The plain path on the card: the same torch work between the kernels,
     # the plain DCTs and the plain rows blur.
     def plain_decode(*c):
-        return jd._decode_rgb_rows_from_planes(
+        return jd._rows_from_grids(
             geo, [chunked(jd.idct8x8_islow, x, q) for x, q in zip(c, qt)])
 
     def plain_encode(r):
@@ -1268,14 +1286,14 @@ def phase_codec_main_paths(card: str) -> dict:
     # Where a transcode pass goes: each kernel's own launches and the torch
     # work between them, on this stream.
     grids = [cuda_dct.dequant_idct_cuda(c, q) for c, q in zip(coefs, qt)]
-    dec_rows = jd._decode_rgb_rows_from_planes(geo, grids)
+    dec_rows = jd._rows_from_grids(geo, grids)
     blurred = gaussian_blur_rows_cuda(dec_rows, CHANNELS, 1)
     enc_grids = je._sample_grids(geo, blurred.reshape(NUM_IMAGES, SIDE, SIDE, CHANNELS))
     outs = [torch.empty_like(c) for c in coefs]
     split = {
         "K6": cuda_ms(lambda: [cuda_dct.dequant_idct_cuda(c, q, out=g)
                                for c, q, g in zip(coefs, qt, grids)], reps=PASSES),
-        "decode torch work": cuda_ms(lambda: jd._decode_rgb_rows_from_planes(
+        "decode torch work": cuda_ms(lambda: jd._rows_from_grids(
             geo, grids, out=dec_rows), reps=PASSES),
         "K1 rows": cuda_ms(lambda: gaussian_blur_rows_cuda(dec_rows, CHANNELS, 1, out=blurred),
                            reps=PASSES),
@@ -1503,6 +1521,210 @@ def phase_engine(card: str) -> dict:
                                if r["kernel"] == "K2")}
 
 
+# Phase 20: the serving options over phase 18's stream.
+SERVE_REPS = 3  # timed passes a path, after one warm-up
+CMYK_IMAGES = 1000
+CPU_IMAGES = 16  # images of each path held against the CPU path
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While the block runs, K6, K7 and K1's rows entry are their plain
+    versions on the card (in chunks) wherever the port calls them: the same
+    path with each kernel replaced, the yardstick of phase 20."""
+    from hipe_tpu_torch.models import pipelines as plib
+    from hipe_tpu_torch.ops import jpeg_decode as jd
+    from hipe_tpu_torch.ops import jpeg_encode as je
+
+    def idct(coefs, q):
+        return chunked(jd.idct8x8_islow, coefs, q)
+
+    def fdct(grid, q):
+        return chunked(je.fdct_quantize_plain, grid, q)
+
+    def rows_blur(rows, c, r, h_pad=True, rows_per_block=None, out=None):
+        y = plain_rows_chunked(rows, c, (f"gaussian{2 * r + 1}",), h_pad)
+        return y if out is None else out.copy_(y)
+
+    saved = jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda
+    jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda = (
+        idct, fdct, rows_blur)
+    try:
+        yield
+    finally:
+        jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda = saved
+
+
+def outputs_err(got, want) -> int:
+    """Max-abs error over a tensor or a list of tensors."""
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} outputs against {len(want)}")
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def drive_serving_path(card: str, label: str, fn, inputs, cpu_fn, per_pass: dict) -> dict:
+    """One path of phase 20: SERVE_REPS timed passes after a warm-up and one
+    kept pass, the launches over them alone (exactly ``per_pass`` a pass,
+    no other kernel), the kept pass against the same path on the plain
+    kernels and its first CPU_IMAGES images against ``cpu_fn`` on CPU
+    tensors. Raises on any difference."""
+    per_pass = {k: v for k, v in per_pass.items() if v}
+    wrappers = reset_counts()
+    ms = cuda_ms(lambda: fn(*inputs), reps=SERVE_REPS)
+    got = fn(*inputs)
+    torch.cuda.synchronize()
+    runs = SERVE_REPS + 2
+    counts = check_counts(wrappers, {k: v * runs for k, v in per_pass.items()}, label)
+    if any(counts[k] != v * runs for k, v in per_pass.items()):
+        raise AssertionError(f"{label}: launches {counts}, expected {per_pass} a pass")
+    with plain_kernels():
+        want = fn(*inputs)
+    err = outputs_err(got, want)
+    del want
+    cpu_err = outputs_err([g[:CPU_IMAGES].cpu() for g in (got if isinstance(got, (list, tuple))
+                                                         else [got])],
+                          cpu_fn(*[x[:CPU_IMAGES].cpu() for x in inputs]))
+    if err or cpu_err:
+        raise AssertionError(f"{label}: max-abs {err} against the plain kernels, {cpu_err} "
+                             "against the CPU path")
+    launched = {k: n for k, n in counts.items() if n}
+    print(f"[20 serving options] {label}: {ms:.4f} ms a pass over {inputs[0].shape[0]} images; "
+          f"launches {launched} over {runs} passes; max_abs_err {err} against the plain "
+          f"kernels, {cpu_err} against the CPU path on the first {CPU_IMAGES} images "
+          f"[{card}]", flush=True)
+    return {"ms": ms, "counts": counts, "err": err}
+
+
+def cmyk_coefficients(image4: torch.Tensor, color: int, qtables: list, count: int):
+    """(geometry, per-component coefficients) of ``count`` copies of a
+    256x256 4-component image, made by K7 from its four planes: CMYK (4)
+    with every component at full resolution, YCCK (5) with libjpeg's
+    sampling (2x2, 1x1, 1x1, 2x2; the middle two averaged 2x2 first)."""
+    from hipe_tpu_torch.ops import jpeg_decode as jd
+    from hipe_tpu_torch.ops import jpeg_encode as je
+
+    samp = ((1, 1),) * 4 if color == 4 else ((2, 2), (1, 1), (1, 1), (2, 2))
+    max_h, max_v = max(h for h, _ in samp), max(v for _, v in samp)
+    comps, coefs = [], []
+    for ci, (h, v) in enumerate(samp):
+        plane = image4[..., ci]
+        if (h, v) != (max_h, max_v):
+            plane = je.downsample_h2v2(plane.to(torch.int32)).to(torch.uint8)
+        c = je.fdct_quantize(plane[None], qtables[ci])
+        coefs.append(c.expand(count, *c.shape[1:]).contiguous())
+        comps.append((h, v, c.shape[2], c.shape[1]))
+    geo = jd.DecodeGeometry(width=image4.shape[1], height=image4.shape[0], ncomps=4,
+                            comps=tuple(comps), max_h=max_h, max_v=max_v, color=color)
+    return geo, coefs
+
+
+def phase_serving_options(card: str) -> dict:
+    """Phase 20: the serving options, CMYK/YCCK decode and the lossless
+    transforms over phase 18's stream; the launches of K6, K7 and K1's rows
+    entry over the phase's paths."""
+    from hipe_tpu_torch.io_ import jpeg as jio
+    from hipe_tpu_torch.ops import jpeg_decode as jd
+    from hipe_tpu_torch.ops import jpeg_encode as je
+    from hipe_tpu_torch.ops import jpeg_transform as jt
+    from hipe_tpu_torch.ops.equalize import colorize_lut
+    from hipe_tpu_torch.runtime.serve import ServingPipeline
+    from hipe_tpu_torch.utils.images import checker_image
+
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    image = checker_image(SIDE, SIDE, CHANNELS, seed=0)
+    geo = je.encode_geometry(SIDE, SIDE, CHANNELS, "420")
+    luma, chroma = jio.quality_tables(90)
+    qt = [luma, chroma, chroma]
+    qkey = tuple(tuple(int(v) for v in q) for q in qt)
+    one = torch.from_numpy(image).to(dev)[None]
+    coefs = tuple(c.expand(NUM_IMAGES, *c.shape[1:]).contiguous()
+                  for c in je.encode_planes(geo, one, qt))
+    lut = colorize_lut("#000080", "#ffe0a0", "#800000")
+    options = {
+        "decode_scale=2": {"decode_scale": 2},
+        "decode_scale=4": {"decode_scale": 4},
+        "decode_scale=8": {"decode_scale": 8},
+        "decode_gray": {"decode_gray": True},
+        "gray_output": {"gray_output": True},
+        "output_scale=2": {"output_scale": 2},
+        "resize_to=(144, 200)": {"resize_to": (144, 200)},
+        "decode_gray + colorize": {"decode_gray": True, "colorize": lut},
+    }
+    totals = {"K6": 0, "K7": 0, "K1 rows": 0}
+    paths = {}
+
+    def add(label: str, res: dict) -> None:
+        paths[label] = res
+        for k in totals:
+            totals[k] += res["counts"][k]
+
+    for name, opts in options.items():
+        sps = [ServingPipeline("blur3", device=d, decode_on_device=True, encode_on_device=True,
+                               **opts) for d in (dev, cpu)]
+        g, q = sps[0]._maybe_gray_geo(geo, qkey)
+        k6 = sum(size == 8 for size in jd.scaled_sizes(g, sps[0].decode_scale))
+        k7 = sps[0]._out_c(3 if g.ncomps == 3 else 1)
+        ins = coefs[:g.ncomps]
+        add(f"{name} decode + blur3", drive_serving_path(
+            card, f"{name} decode + blur3", sps[0].decode_filter_fn(g, q), ins,
+            sps[1].decode_filter_fn(g, q), {"K6": k6, "K1 rows": 1}))
+        add(f"{name} transcode", drive_serving_path(
+            card, f"{name} transcode", sps[0].transcode_fn(g, q), ins,
+            sps[1].transcode_fn(g, q), {"K6": k6, "K1 rows": 1, "K7": k7}))
+        for sp in sps:
+            sp.close()
+    image4 = torch.from_numpy(checker_image(SIDE, SIDE, 4, seed=1)).to(dev)
+    qt4 = [luma, chroma, chroma, luma]
+    for color, label in ((4, "CMYK"), (5, "YCCK")):
+        g4, c4 = cmyk_coefficients(image4, color, qt4, CMYK_IMAGES)
+
+        def decode4(*c, g4=g4):
+            return jd.decode_planes(g4, list(c), qt4, layout="rows")
+
+        add(f"{label} decode", drive_serving_path(card, f"{label} decode {g4.comps}", decode4, c4,
+                                                  decode4, {"K6": 4}))
+        del c4
+    for op in jt.OPS:
+        def transform(*c, op=op):
+            return [jt.transform_component(x, op) for x in c]
+
+        add(f"transform {op}", drive_serving_path(card, f"transform {op}", transform, coefs,
+                                                  transform, {}))
+    back = coefs
+    for _ in range(4):
+        back = [jt.transform_component(x, "rot90") for x in back]
+    if outputs_err(back, coefs):
+        raise AssertionError("four rot90 transforms on the card are not the identity")
+    found = libjpeg_found()
+    if "jpeglib.h found" in found and "libjpeg absent" not in found:
+        from hipe_tpu_torch import cli
+
+        if cli.main(["serve", "blur3", "--decode-scale", "4", "--gray", "--decode-on-device",
+                     "--encode-on-device", "--num-images", "8", "--batch-size", "4"]) != 0:
+            raise AssertionError("serve --decode-scale 4 --gray failed")
+        data = jio.encode_bytes(image, 90)
+        turned = jt.transform_bytes(jt.transform_bytes(data, "rot90"), "rot270")
+        for a, b in zip(jio.read_coefficients(turned).components,
+                        jio.read_coefficients(data).components):
+            if not np.array_equal(a.coefs, b.coefs):
+                raise AssertionError("transform rot90 then rot270 changed the coefficients")
+        print(f"[20 serving options] byte level: serve --decode-scale 4 --gray and a transform "
+              f"rot90/rot270 round trip ran, coefficients equal [{card}]", flush=True)
+    else:
+        print(f"[20 serving options] byte level not run: {found} on this machine; the host "
+              "entropy layer needs libjpeg, so serve --decode-scale 4 --gray and the "
+              f"transform rot90 round trip run only where it is installed [{card}]", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[20 serving options] launches over the phase's paths {totals}; phase {secs:.1f} s "
+          f"[{card}]", flush=True)
+    del coefs, back, image4
+    torch.cuda.empty_cache()
+    return {"paths": paths, "launches": totals, "secs": secs}
+
+
 def main() -> int:
     from hipe_tpu_torch.ops.blur import FILTER_RADIUS, GAUSSIANS
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
@@ -1544,6 +1766,7 @@ def main() -> int:
     k7_err = phase_k7_vs_plain(card)
     codec = phase_codec_main_paths(card)
     engine = phase_engine(card)
+    serving = phase_serving_options(card)
     transcode = codec["paths"]["transcode"]
     codec_err = max(p["err"] for p in codec["paths"].values())
     # No PyTorch call computes these functions: none takes uint8 planes with
@@ -1560,7 +1783,7 @@ def main() -> int:
                           "hipe_tpu/ops/pallas_blur.py:923 (single-gaussian chains)",
                           "hipe_tpu/ops/pallas_blur.py:566 (rows entry)"],
         "launches": (blur3["launches"] + rows["launches"] + transcode["counts"]["K1 rows"]
-                     + large_blur3["counts"]["K1"]),
+                     + large_blur3["counts"]["K1"] + serving["launches"]["K1 rows"]),
         "max_abs_err": max(k1_err, blur3["chain_err"], k1_rows_err, rows["chain_err"],
                            codec_err, large_blur3["chain_err"]),
         "ms": blur3["ms"],
@@ -1585,6 +1808,8 @@ def main() -> int:
         "device_idle": blur3["idle"],
         # Phase 19: K1's rows entry on the engine's CUDA lane, every blur3 run.
         "engine_launches": engine["k1_launches"],
+        # Phase 20: K1's rows entry on every serving-option path (in launches).
+        "serving_options_launches": serving["launches"]["K1 rows"],
     }, {
         "name": "chain_planar_u8",
         "route": "cuda",
@@ -1648,8 +1873,10 @@ def main() -> int:
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/dct_blocks.cu",
         "replaces": "hipe_tpu/ops/pallas_dct.py:72",
-        "launches": transcode["counts"]["K6"],
+        "launches": transcode["counts"]["K6"] + serving["launches"]["K6"],
         "launches_per_pass": 3,
+        # Phase 20: scaled-size-8, gray, full-size and CMYK/YCCK components.
+        "serving_options_launches": serving["launches"]["K6"],
         "max_abs_err": max(k6_err, codec_err),
         "ms": codec["split"]["K6"],
         "plain_ms": codec["plain_k6"],
@@ -1663,8 +1890,10 @@ def main() -> int:
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/dct_blocks.cu",
         "replaces": "hipe_tpu/ops/pallas_dct.py:155",
-        "launches": transcode["counts"]["K7"],
+        "launches": transcode["counts"]["K7"] + serving["launches"]["K7"],
         "launches_per_pass": 3,
+        # Phase 20: the encode of every option's transcode.
+        "serving_options_launches": serving["launches"]["K7"],
         "max_abs_err": max(k7_err, codec_err),
         "ms": codec["split"]["K7"],
         "plain_ms": codec["plain_k7"],

@@ -24,14 +24,18 @@ easy to find:
   (``csrc/dct_blocks.cu``), which replace the Pallas DCT kernels;
 - :mod:`hipe_tpu_torch.ops.jpeg_decode`, :mod:`hipe_tpu_torch.ops.jpeg_encode`
   — the device codec (``decode_coefficients``, ``decode_planes``,
-  ``encode_planes``, ``encode_bytes_device``); :mod:`hipe_tpu_torch.io_.jpeg`
-  — its host entropy layer, the libjpeg codec (``csrc/jpeg_codec.cpp``);
+  ``decode_planes_scaled``, ``encode_planes``, ``encode_bytes_device``);
+  :mod:`hipe_tpu_torch.io_.jpeg` — its host entropy layer, the libjpeg codec
+  (``csrc/jpeg_codec.cpp``); :mod:`hipe_tpu_torch.ops.jpeg_transform` — the
+  lossless DCT-domain transforms; :mod:`hipe_tpu_torch.ops.resize` — the Q14
+  bilinear resize; :mod:`hipe_tpu_torch.ops.equalize` — ``colorize_lut``;
 - :mod:`hipe_tpu_torch.models.pipelines` — ``Pipeline``/``PIPELINES``
   (``apply_planar``, ``apply_rows``, ``apply_nhwc``);
 - :mod:`hipe_tpu_torch.runtime.device_stream` — ``DeviceStreamRunner``,
   the device-resident stream (5000 images of 256x256, or large frames);
 - :mod:`hipe_tpu_torch.runtime.serve` — ``ServingPipeline``, JPEG decode ->
-  filter -> encode in four placements of the codec;
+  filter -> encode in four placements of the codec, with ``hipe_tpu``'s
+  scaled/gray decode, resize, thumbnail, gray and colorize options;
 - :mod:`hipe_tpu_torch.runtime.engine`, :mod:`hipe_tpu_torch.runtime.fleet`
   — the reference's heterogeneous programs over a host-CPU lane and a CUDA
   lane (``Engine``/``EngineConfig``: approach 1 and 2; ``FleetEngine``/

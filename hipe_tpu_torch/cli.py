@@ -27,7 +27,21 @@ Its input is ``checker_image(256, 256, 3, seed=0)`` (or ``--image PATH``)
 encoded by the port's host codec at ``--quality``. The host codec is
 libjpeg, built at first use; where g++ or libjpeg is missing, ``serve``
 fails and says so. ``--device cpu`` runs it on the CPU, with the kernels'
-plain versions.
+plain versions. ``hipe_tpu``'s serving options select the stages around the
+filter::
+
+    python -m hipe_tpu_torch.cli serve blur3 --decode-scale 4 --gray --json
+    python -m hipe_tpu_torch.cli serve blur3 --decode-gray --resize 64 48 --json
+    python -m hipe_tpu_torch.cli serve blur3 --thumbnail --encode-on-device --json
+    python -m hipe_tpu_torch.cli serve blur3 --decode-gray \
+        --colorize navy:#ffe0a0:maroon --json
+
+``transform`` is the lossless DCT-domain transform of JPEG files (the
+jpegtran analog; several inputs take the batched path and ``-o`` names a
+directory)::
+
+    python -m hipe_tpu_torch.cli transform IMG.jpg rot90 -o out.jpg
+    python -m hipe_tpu_torch.cli transform IMG.jpg crop --crop 32 32 100 75 -o c.jpg
 
 ``approach1`` and ``approach2`` are the reference's two programs
 (``heterogeneous_blur [cpu|gpu|both] [gpu_ratio] [batch_size]`` and
@@ -104,6 +118,7 @@ def _add_register_flags(p: argparse.ArgumentParser) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     from hipe_tpu_torch.ops.jpeg_encode import DEVICE_SUBSAMPLINGS
+    from hipe_tpu_torch.ops.jpeg_transform import ALL_OPS
 
     p = argparse.ArgumentParser(prog="hipe_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -146,6 +161,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-image optimal Huffman tables (identical pixels)")
     sv.add_argument("--encode-restart-interval", type=int, default=0, metavar="MCUS",
                     help="insert RSTn markers every MCUS MCUs (0 = none)")
+    sv.add_argument("--decode-gray", action="store_true",
+                    help="decode colour streams as grayscale at the source (libjpeg "
+                         "JCS_GRAYSCALE: the luma's IDCT alone) and run 1-channel")
+    sv.add_argument("--gray", action="store_true",
+                    help="grayscale outputs: jccolor.c's luma on the card after the filter, "
+                         "byte-identical to libjpeg's RGB -> grayscale encode")
+    sv.add_argument("--thumbnail", action="store_true",
+                    help="half-size outputs: filter, an exact 2x2 average (jcsample.c "
+                         "rounding), encode")
+    sv.add_argument("--resize", type=int, nargs=2, default=None, metavar=("H", "W"),
+                    help="any output size: filter, the integer-exact Q14 bilinear resize, "
+                         "encode")
+    sv.add_argument("--colorize", default=None, metavar="BLACK:WHITE[:MID]",
+                    help="map the grayscale output to a colour wedge (PIL "
+                         "ImageOps.colorize, bit-exact; colours #rgb, #rrggbb, or names "
+                         "where PIL is installed); needs --decode-gray or --gray")
+    sv.add_argument("--decode-scale", type=int, default=1, choices=(1, 2, 4, 8),
+                    help="DCT-domain scaled decode 1/N (libjpeg scale_num/denom, "
+                         "bit-exact): the whole pipeline runs at ceil(dim/N)")
     sv.add_argument("--no-encode", action="store_true",
                     help="skip the output JPEG encode")
     sv.add_argument("--json", action="store_true",
@@ -153,6 +187,22 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default="cuda",
                     help="device to run on (default: cuda; cpu runs the plain "
                          "versions)")
+    tr = sub.add_parser("transform", help="lossless DCT-domain transform of JPEG files "
+                                          "(the jpegtran analog)")
+    tr.add_argument("input", nargs="+",
+                    help="input JPEG path(s); several inputs take the batched path and "
+                         "-o names a directory")
+    tr.add_argument("op", choices=(*ALL_OPS, "crop"))
+    tr.add_argument("--crop", type=int, nargs=4, default=None, metavar=("X", "Y", "W", "H"),
+                    help="the region of op=crop (X and Y iMCU-aligned)")
+    tr.add_argument("-o", "--output", required=True,
+                    help="output JPEG path (a directory for several inputs)")
+    tr.add_argument("--progressive", action="store_true")
+    tr.add_argument("--arithmetic", action="store_true")
+    tr.add_argument("--optimize", action="store_true")
+    tr.add_argument("--device", default="cuda",
+                    help="device of the coefficient ops (default: cuda; cpu runs them "
+                         "on the host)")
     _add_approach_parsers(sub)
     return p
 
@@ -395,15 +445,47 @@ def _main_serve(args) -> int:
         print("Encode: " + ("device (colour/downsample/fDCT K7/quantize on the card, "
                             "entropy on the host)" if args.encode_on_device
                             else "host (native libjpeg)"))
+    if args.thumbnail:
+        print("Output: half-size thumbnails (exact 2x2 average)")
+    if args.decode_scale > 1:
+        print(f"Decode scale: 1/{args.decode_scale} (DCT-domain, bit-exact vs libjpeg "
+              "scaled decode)")
+    colorize = None
+    if args.colorize is not None:
+        from hipe_tpu_torch.ops.equalize import colorize_lut
+
+        parts = args.colorize.split(":")
+        if len(parts) not in (2, 3):
+            print("Error: --colorize takes BLACK:WHITE or BLACK:WHITE:MID colors",
+                  file=sys.stderr)
+            return 1
+        if not (args.decode_gray or args.gray):
+            print("Error: --colorize needs a grayscale stage output; combine it with "
+                  "--decode-gray or --gray", file=sys.stderr)
+            return 1
+        try:
+            colorize = colorize_lut(*parts)
+        except ValueError as e:
+            print(f"Error: bad --colorize: {e}", file=sys.stderr)
+            return 1
+        print(f"Colorize: {' -> '.join(parts)} (PIL ImageOps.colorize, bit-exact)")
     print(f"Card: {card}")
-    serve = ServingPipeline(
-        pipeline, device=device, quality=args.quality,
-        decode_on_device=args.decode_on_device, encode_on_device=args.encode_on_device,
-        encode_subsampling=args.encode_subsampling,
-        encode_progressive=args.encode_progressive,
-        encode_arithmetic=args.encode_arithmetic,
-        encode_restart_interval=args.encode_restart_interval,
-        encode_optimize=args.encode_optimize)
+    try:
+        serve = ServingPipeline(
+            pipeline, device=device, quality=args.quality,
+            decode_on_device=args.decode_on_device, encode_on_device=args.encode_on_device,
+            encode_subsampling=args.encode_subsampling,
+            encode_progressive=args.encode_progressive,
+            encode_arithmetic=args.encode_arithmetic,
+            encode_restart_interval=args.encode_restart_interval,
+            encode_optimize=args.encode_optimize,
+            output_scale=2 if args.thumbnail else 1,
+            resize_to=tuple(args.resize) if args.resize else None,
+            decode_scale=args.decode_scale, gray_output=args.gray,
+            decode_gray=args.decode_gray, colorize=colorize)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
 
     def batches():
         sent = 0
@@ -437,6 +519,54 @@ def _main_serve(args) -> int:
             "card": card,
         }))
     return 0 if n_out == args.num_images else 1
+
+
+def _main_transform(args) -> int:
+    """Lossless DCT-domain transform of JPEG files (the jpegtran analog)."""
+    import os
+
+    from hipe_tpu_torch.ops.jpeg_transform import crop_bytes, transform_batch, transform_bytes
+
+    opts = dict(progressive=args.progressive, arithmetic=args.arithmetic,
+                optimize=args.optimize)
+    try:
+        datas = []
+        for path in args.input:
+            with open(path, "rb") as f:
+                datas.append(f.read())
+        if args.op == "crop":
+            if args.crop is None:
+                raise ValueError("op=crop requires --crop X Y W H")
+            outs = [crop_bytes(d, *args.crop, **opts) for d in datas]
+        elif len(datas) > 1:
+            outs = transform_batch(datas, args.op, device=args.device, **opts)
+        else:
+            outs = [transform_bytes(datas[0], args.op, device=args.device, **opts)]
+    except (OSError, ValueError) as e:
+        print(f"Error: {e}")
+        return 1
+    except RuntimeError as e:  # no CUDA device, or no g++ or libjpeg to build the codec
+        print(f"Error: {str(e).splitlines()[0]}")
+        return 1
+    if len(args.input) > 1:
+        names = [os.path.basename(p) for p in args.input]
+        if len(set(names)) != len(names):
+            print("Error: input basenames collide; outputs would overwrite each other in "
+                  "the output directory")
+            return 1
+        os.makedirs(args.output, exist_ok=True)
+        for name, out in zip(names, outs):
+            with open(os.path.join(args.output, name), "wb") as f:
+                f.write(out)
+        print(f"{args.op}: {len(datas)} files -> {args.output}/ "
+              f"({sum(len(d) for d in datas)} -> {sum(len(o) for o in outs)} bytes, "
+              "lossless)")
+    else:
+        with open(args.output, "wb") as f:
+            f.write(outs[0])
+        print(f"{args.op}: {args.input[0]} -> {args.output} "
+              f"({len(datas[0])} -> {len(outs[0])} bytes, lossless)")
+    return 0
 
 
 def _main_approach(args) -> int:
@@ -550,6 +680,8 @@ def main(argv=None) -> int:
         return _main_stream(args)
     if args.command == "serve":
         return _main_serve(args)
+    if args.command == "transform":
+        return _main_transform(args)
     return _main_approach(args)
 
 

@@ -19,7 +19,11 @@ Dequantize, IDCT, upsampling, colour conversion, filtering, downsampling,
 fDCT and quantization run on the card (``ops/jpeg_decode.py``,
 ``ops/jpeg_encode.py``). :func:`decode_bytes`, :func:`decode_batch`,
 :func:`encode_bytes` and :func:`encode_bytes_opts` are whole-image host
-codecs: the host placements of ``runtime/serve.py`` and the tests' oracle.
+codecs: the host placements of ``runtime/serve.py`` and the tests' oracle;
+their scaled (:func:`decode_bytes_scaled`, :func:`decode_batch_scaled`) and
+grayscale (``force_gray``, ``gray_from_rgb``) forms and
+:func:`encode_cmyk_bytes` too. :func:`read_markers` and the ``qtables`` and
+``markers`` of :func:`write_coefficients` serve the lossless transforms.
 :func:`quality_tables` is pure Python, so the device codec needs no libjpeg.
 """
 
@@ -117,6 +121,13 @@ def _load() -> ctypes.CDLL:
         "hipe_jpeg_write_coefs_batch": [ci, ci, ci, ci, ci, ci, ci, ci, ci, u16p,
                                         ctypes.POINTER(i16p), ci, u8p, csz, szp,
                                         ip, ci],
+        "hipe_jpeg_encode_cmyk": [u8p, ci, ci, ci, ci, ci, u8p, csz, szp],
+        "hipe_jpeg_read_markers": [u8p, csz, u8p, csz, szp],
+        "hipe_jpeg_scaled_dims": [u8p, csz, ci, ci, ip, ip, ip],
+        "hipe_jpeg_decode_scaled": [u8p, csz, u8p, ci, ci, ci, ci, ci],
+        "hipe_jpeg_scaled_info": [u8p, csz, ci, ci, ip],
+        "hipe_jpeg_decode_scaled_batch": [ctypes.POINTER(u8p), szp, ci, u8p, ci, ci, ci,
+                                          ci, ci, ci],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -136,27 +147,44 @@ def _check_image(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def decode_bytes(data: bytes) -> np.ndarray:
-    """Decode a JPEG byte string to HWC uint8 (C = 3, 1, or 4 for CMYK)."""
+def _gray_channels(c: int, force_gray: bool) -> int:
+    """Output channels of a decode; ``force_gray`` makes colour streams 1.
+    libjpeg has no grayscale conversion of 4-component streams."""
+    if not force_gray:
+        return c
+    if c == 4:
+        raise ValueError("4-component (CMYK) streams have no grayscale conversion in libjpeg")
+    return 1
+
+
+def decode_bytes(data: bytes, force_gray: bool = False) -> np.ndarray:
+    """Decode a JPEG byte string to HWC uint8: RGB (C = 3), grayscale
+    (C = 1), or CMYK samples as libjpeg emits them for 4-component Adobe
+    streams (C = 4; YCCK through the library's Adobe transform).
+    ``force_gray`` decodes colour streams with ``out_color_space =
+    JCS_GRAYSCALE`` (the luma's IDCT alone, chroma never touched);
+    4-component streams raise."""
     lib = _load()
     buf = np.frombuffer(data, dtype=np.uint8)
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     if lib.hipe_jpeg_dims(_as_u8p(buf), buf.size, w, h, c) != 0:
         raise ValueError("invalid JPEG header")
-    out = np.empty((h.value, w.value, c.value), dtype=np.uint8)
+    channels = _gray_channels(c.value, force_gray)
+    out = np.empty((h.value, w.value, channels), dtype=np.uint8)
     rc = lib.hipe_jpeg_decode(_as_u8p(buf), buf.size, _as_u8p(out),
-                              w.value, h.value, c.value)
+                              w.value, h.value, channels)
     if rc != 0:
         raise ValueError(f"JPEG decode failed (rc={rc})")
     return out
 
 
-def decode_batch(datas: list[bytes], num_threads: int | None = None) -> np.ndarray:
+def decode_batch(datas: list[bytes], num_threads: int | None = None,
+                 force_gray: bool = False) -> np.ndarray:
     """Decode same-shaped JPEGs concurrently into one (B, H, W, C) batch."""
     if not datas:
         raise ValueError("empty batch")
     lib = _load()
-    first = decode_bytes(datas[0])
+    first = decode_bytes(datas[0], force_gray=force_gray)
     h, w, c = first.shape
     out = np.empty((len(datas), h, w, c), dtype=np.uint8)
     out[0] = first
@@ -165,6 +193,80 @@ def decode_batch(datas: list[bytes], num_threads: int | None = None) -> np.ndarr
         nt = num_threads or min(os.cpu_count() or 1, len(keep))
         fails = lib.hipe_jpeg_decode_batch(ptrs, lens, len(keep), _as_u8p(out[1:]),
                                            w, h, c, nt)
+        if fails:
+            raise ValueError(f"{fails} images failed to decode")
+    return out
+
+
+def scaled_dims(data: bytes, scale_num: int, scale_denom: int) -> tuple[int, int, int]:
+    """(H, W, C) of a libjpeg scaled decode at ``scale_num/scale_denom``:
+    libjpeg normalizes the ratio to M/8 (M in 1..16) and the output dims are
+    ceil(dim * M / 8) (``jpeg_calc_output_dimensions``)."""
+    lib = _load()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.hipe_jpeg_scaled_dims(_as_u8p(buf), buf.size, scale_num, scale_denom, w, h, c):
+        raise ValueError("invalid JPEG header")
+    return h.value, w.value, c.value
+
+
+def scaled_info(data: bytes, scale_num: int, scale_denom: int):
+    """libjpeg's geometry at a scaled decode, probed without decoding:
+    ``((out_w, out_h), [(dct_scaled_size, down_w, down_h), ...])``, the
+    scaled DCT size jdmaster.c picks for each component and its downsampled
+    dims. The ground truth of :func:`hipe_tpu_torch.ops.jpeg_decode.scaled_sizes`."""
+    lib = _load()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    info = (ctypes.c_int * 18)()
+    rc = lib.hipe_jpeg_scaled_info(_as_u8p(buf), buf.size, scale_num, scale_denom, info)
+    if rc != 0:
+        raise ValueError(f"JPEG scaled-info probe failed (rc={rc})")
+    # One 4-int record a header component; DCT_scaled_size is at least 1, so
+    # the first zero record (the array starts zeroed) ends the list.
+    comps = []
+    for i in range(4):
+        rec = info[2 + 4 * i: 2 + 4 * (i + 1)]
+        if rec[0] == 0:
+            break
+        comps.append((rec[0], rec[1], rec[2]))
+    return (info[0], info[1]), comps
+
+
+def decode_bytes_scaled(data: bytes, scale_num: int, scale_denom: int,
+                        force_gray: bool = False) -> np.ndarray:
+    """Decode at ``scale_num/scale_denom`` by libjpeg's DCT-domain scaling:
+    the host decode of thumbnail serving and the oracle of
+    :func:`hipe_tpu_torch.ops.jpeg_decode.decode_planes_scaled`.
+    ``force_gray`` as in :func:`decode_bytes`."""
+    lib = _load()
+    h, w, c = scaled_dims(data, scale_num, scale_denom)
+    c = _gray_channels(c, force_gray)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty((h, w, c), dtype=np.uint8)
+    rc = lib.hipe_jpeg_decode_scaled(_as_u8p(buf), buf.size, _as_u8p(out), w, h, c,
+                                     scale_num, scale_denom)
+    if rc != 0:
+        raise ValueError(f"scaled JPEG decode failed (rc={rc})")
+    return out
+
+
+def decode_batch_scaled(datas: list[bytes], scale_num: int, scale_denom: int,
+                        num_threads: int | None = None,
+                        force_gray: bool = False) -> np.ndarray:
+    """:func:`decode_bytes_scaled` of same-shaped JPEGs into one
+    (B, H, W, C) batch, on the native thread pool."""
+    if not datas:
+        raise ValueError("empty batch")
+    lib = _load()
+    first = decode_bytes_scaled(datas[0], scale_num, scale_denom, force_gray=force_gray)
+    h, w, c = first.shape
+    out = np.empty((len(datas), h, w, c), dtype=np.uint8)
+    out[0] = first
+    if len(datas) > 1:
+        keep, ptrs, lens = _batch_ptrs(datas[1:])
+        nt = num_threads or min(os.cpu_count() or 1, len(keep))
+        fails = lib.hipe_jpeg_decode_scaled_batch(ptrs, lens, len(keep), _as_u8p(out[1:]),
+                                                  w, h, c, scale_num, scale_denom, nt)
         if fails:
             raise ValueError(f"{fails} images failed to decode")
     return out
@@ -249,20 +351,39 @@ class JpegCoefficients:
 
     @classmethod
     def from_arrays(cls, width: int, height: int, coefs, qtables, samplings,
-                    progressive: bool = False) -> "JpegCoefficients":
+                    progressive: bool = False,
+                    color_space: int | None = None) -> "JpegCoefficients":
         """Build one from numpy arrays: ``coefs[i]`` (Hb_i, Wb_i, 64) int16,
         ``qtables[i]`` (64,), ``samplings[i]`` (h_samp, v_samp). The colour
-        space is YCbCr for 3 components and grayscale for 1."""
-        if not len(coefs) == len(qtables) == len(samplings) or len(coefs) not in (1, 3):
-            raise ValueError("expected 1 or 3 components, each with coefficients, "
-                             "a quant table and its sampling factors")
+        space defaults to YCbCr for 3 components and grayscale for 1; 4
+        components need it given, 4 (CMYK) or 5 (YCCK)."""
+        n = len(coefs)
+        if not n == len(qtables) == len(samplings) or n not in (1, 3, 4):
+            raise ValueError("expected 1 or 3 components (or 4 with a CMYK/YCCK "
+                             "color_space), each with coefficients, a quant table and "
+                             "its sampling factors")
+        if color_space is None:
+            if n == 4:
+                raise ValueError("4 components need color_space 4 (CMYK) or 5 (YCCK)")
+            color_space = 3 if n == 3 else 1
         comps = [ComponentCoefs(coefs=np.asarray(c, dtype=np.int16),
                                 qtable=np.asarray(q, dtype=np.uint16).reshape(64),
                                 h_samp=int(hs), v_samp=int(vs))
                  for c, q, (hs, vs) in zip(coefs, qtables, samplings)]
         return cls(width=int(width), height=int(height), components=comps,
                    max_h=max(c.h_samp for c in comps), max_v=max(c.v_samp for c in comps),
-                   progressive=progressive, color_space=3 if len(comps) == 3 else 1)
+                   progressive=bool(progressive), color_space=int(color_space))
+
+    @classmethod
+    def from_coefficients(cls, co) -> "JpegCoefficients":
+        """A copy of any object with this class's fields (``hipe_tpu``'s
+        ``JpegCoefficients`` among them): dims, each component's
+        coefficients, quant table and sampling, progressive, colour space."""
+        return cls.from_arrays(
+            co.width, co.height, [c.coefs for c in co.components],
+            [c.qtable for c in co.components],
+            [(c.h_samp, c.v_samp) for c in co.components],
+            progressive=co.progressive, color_space=co.color_space)
 
 
 _INFO_LEN = 27  # mirrors INFO_LEN in jpeg_codec.cpp
@@ -322,12 +443,15 @@ def encode_bytes_opts(
     progressive: bool = False,
     arithmetic: bool = False,
     restart_interval: int = 0,
+    gray_from_rgb: bool = False,
     optimize: bool = False,
 ) -> bytes:
     """Encode with a chroma layout (a ``_SUB_CODES`` name) and the entropy
     options: progressive scans, arithmetic coding, restart markers every
     ``restart_interval`` MCUs (0: none), optimal Huffman tables. None of the
-    options changes the quantized coefficients."""
+    options changes the quantized coefficients. ``gray_from_rgb`` encodes an
+    RGB image as a 1-component file through libjpeg's own RGB -> grayscale
+    conversion (jccolor.c rgb_gray_convert)."""
     sub_code = _SUB_CODES[subsampling]
     lib = _load()
     img = _check_image(img)
@@ -335,8 +459,79 @@ def encode_bytes_opts(
     return _run_encode(
         lambda out, cap, out_len: lib.hipe_jpeg_encode_opts(
             _as_u8p(img), w, h, c, quality, sub_code, int(progressive),
-            int(arithmetic), int(restart_interval), 0, int(optimize), out, cap, out_len),
+            int(arithmetic), int(restart_interval), int(gray_from_rgb), int(optimize),
+            out, cap, out_len),
         w * h * c + 65536)
+
+
+def encode_cmyk_bytes(img: np.ndarray, quality: int = 90, ycck: bool = False,
+                      progressive: bool = False) -> bytes:
+    """Encode an (H, W, 4) CMYK image, samples as given (the Adobe
+    inversion is the caller's concern: decode returns the same values).
+    ``ycck`` stores Adobe YCCK (transform 2, subsampled chroma), else plain
+    CMYK (transform 0, every component at full resolution); both carry the
+    Adobe APP14 marker, so decoders classify them as libjpeg does."""
+    img = _check_image(img)
+    if img.shape[2] != 4:
+        raise ValueError(f"expected an (H, W, 4) CMYK image, got shape {img.shape}")
+    lib = _load()
+    h, w, _ = img.shape
+    return _run_encode(
+        lambda out, cap, out_len: lib.hipe_jpeg_encode_cmyk(
+            _as_u8p(img), w, h, quality, int(ycck), int(progressive), out, cap, out_len),
+        w * h * 4 + 65536)
+
+
+def read_markers(data: bytes) -> list[tuple[int, bytes]]:
+    """The COM and APP1..APP13 markers of a JPEG stream in file order, as
+    (marker code, payload): Exif (APP1 = 0xE1), ICC (APP2), XMP, comments
+    (COM = 0xFE). APP0/JFIF and APP14/Adobe are left out: the writer makes
+    its own. What jpegtran's ``-copy`` carries."""
+    lib = _load()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    cap = len(data) + 4096
+    out = np.empty(cap, dtype=np.uint8)
+    out_len = ctypes.c_size_t()
+    rc = lib.hipe_jpeg_read_markers(_as_u8p(buf), buf.size, _as_u8p(out), cap, out_len)
+    if rc == 3:
+        out = np.empty(int(out_len.value), dtype=np.uint8)
+        rc = lib.hipe_jpeg_read_markers(_as_u8p(buf), buf.size, _as_u8p(out), out.size,
+                                        out_len)
+    if rc != 0:
+        raise ValueError(f"marker read failed (rc={rc})")
+    raw = out[: int(out_len.value)].tobytes()
+    res: list[tuple[int, bytes]] = []
+    p = 0
+    while p < len(raw):
+        code = int.from_bytes(raw[p:p + 4], "little")
+        dlen = int.from_bytes(raw[p + 4:p + 8], "little")
+        res.append((code, raw[p + 8:p + 8 + dlen]))
+        p += 8 + dlen
+    return res
+
+
+def _qt_override_buf(qtables: list) -> np.ndarray:
+    """(2, 64) uint16 tables for the writer's two slots: component 0 takes
+    the luma slot, components 1 and 2 the chroma slot. A stream whose Cb and
+    Cr tables differ cannot be written without requantizing one of them, so
+    it raises instead of corrupting Cr."""
+    qt_buf = np.zeros((2, 64), dtype=np.uint16)
+    qt_buf[0] = np.asarray(qtables[0], dtype=np.uint16)
+    if len(qtables) > 1:
+        qt_buf[1] = np.asarray(qtables[1], dtype=np.uint16)
+        for extra in qtables[2:]:
+            if not np.array_equal(qt_buf[1], np.asarray(extra, dtype=np.uint16)):
+                raise ValueError("stream's chroma components use different quant tables; "
+                                 "the two-slot writer cannot represent that losslessly")
+    return qt_buf
+
+
+def _qt_ptr(qtables):
+    """(keepalive, pointer) of the table override, or (None, None)."""
+    if qtables is None:
+        return None, None
+    buf = _qt_override_buf(qtables)
+    return buf, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
 
 
 def quality_tables(quality: int) -> tuple[np.ndarray, np.ndarray]:
@@ -376,13 +571,19 @@ def write_coefficients(
     arithmetic: bool = False,
     restart_interval: int = 0,
     optimize: bool = False,
+    qtables: list[np.ndarray] | None = None,
+    markers: list[tuple[int, bytes]] | None = None,
 ) -> bytes:
     """Entropy-encode quantized DCT coefficients into a full JPEG.
 
     ``coefs[i]``: (Hb_i, Wb_i, 64) int16 in natural order, the unpadded
-    block grid; the quant tables are ``quality``'s. MCU-edge dummy blocks
-    are synthesized natively with the direct encoder's jccoefct.c semantics,
-    so for matching coefficients the file is byte-identical to
+    block grid. The quant tables are ``quality``'s, or ``qtables`` (luma
+    and chroma, (64,) natural order) written as given: the lossless
+    transforms need that, since their tables are transposed or not
+    libjpeg's. ``markers``: (code, payload) records (:func:`read_markers`)
+    written after the frame tables. MCU-edge dummy blocks are synthesized
+    natively with the direct encoder's jccoefct.c semantics, so for
+    matching coefficients the file is byte-identical to
     :func:`encode_bytes_opts` on the same pixels.
     """
     lib = _load()
@@ -398,10 +599,18 @@ def write_coefficients(
                              f"subsampling={subsampling!r}")
     i16p = ctypes.POINTER(ctypes.c_int16)
     ptrs = (i16p * ncomps)(*[a.ctypes.data_as(i16p) for a in arrays])
+    _qt_keep, qt_ptr = _qt_ptr(qtables)
+    mk_ptr, mk_len = None, 0
+    if markers:
+        mk_buf = np.frombuffer(b"".join(
+            int(code).to_bytes(4, "little") + len(payload).to_bytes(4, "little")
+            + bytes(payload) for code, payload in markers), dtype=np.uint8)
+        mk_ptr, mk_len = _as_u8p(mk_buf), mk_buf.size
     return _run_encode(
         lambda out, cap, out_len: lib.hipe_jpeg_write_coefs(
             width, height, ncomps, quality, sub_code, int(progressive), int(arithmetic),
-            int(restart_interval), int(optimize), None, None, 0, ptrs, out, cap, out_len),
+            int(restart_interval), int(optimize), qt_ptr, mk_ptr, mk_len, ptrs, out, cap,
+            out_len),
         width * height * 3 + 65536)
 
 
@@ -485,13 +694,14 @@ def write_coefficients_batch(
     arithmetic: bool = False,
     restart_interval: int = 0,
     optimize: bool = False,
+    qtables: list[np.ndarray] | None = None,
     num_threads: int | None = None,
 ) -> list[bytes]:
     """Entropy-encode a coefficient batch into JPEG files concurrently.
 
     ``coefs[ci]``: (B, Hb_ci, Wb_ci, 64) int16, one stacked batch a
     component (the device encoder's layout); B :func:`write_coefficients`
-    calls on the native thread pool. An image whose stream exceeds its
+    calls on the native thread pool, with ``qtables`` as there. An image whose stream exceeds its
     preallocated slot is redone at the exact size the C side reports.
     """
     lib = _load()
@@ -518,9 +728,10 @@ def write_coefficients_batch(
     out_lens = np.zeros(b, dtype=np.uintp)
     rcs = np.zeros(b, dtype=np.intc)
     nt = num_threads or (os.cpu_count() or 1)
+    _qt_keep, qt_ptr = _qt_ptr(qtables)
     lib.hipe_jpeg_write_coefs_batch(
         width, height, ncomps, quality, sub_code, int(progressive), int(arithmetic),
-        int(restart_interval), int(optimize), None, ptr_table, b, _as_u8p(out), cap,
+        int(restart_interval), int(optimize), qt_ptr, ptr_table, b, _as_u8p(out), cap,
         out_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_size_t)),
         rcs.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), nt)
     results: list[bytes] = []
@@ -532,7 +743,7 @@ def write_coefficients_batch(
             results.append(write_coefficients(
                 [arrays[ci][i] for ci in range(ncomps)], width, height, quality=quality,
                 subsampling=subsampling, progressive=progressive, arithmetic=arithmetic,
-                restart_interval=restart_interval, optimize=optimize))
+                restart_interval=restart_interval, optimize=optimize, qtables=qtables))
         else:
             raise ValueError(f"JPEG coefficient write failed for image {i} (rc={rc})")
     return results

@@ -17,8 +17,12 @@ temporaries stay small. The plain IDCT below (:func:`_dequant_planes`,
 :func:`_idct_planes_core`) is K6's plain version: the CPU path and the
 yardstick the kernel is held against.
 
-Still to be ported (ROADMAP.md): scaled decode, grayscale decode of colour
-streams and 4-component (CMYK/YCCK) streams.
+Besides 1- and 3-component streams it decodes Adobe CMYK and YCCK
+(jdcolor.c's null and ycck_cmyk_convert), the luma alone of a colour stream
+(:func:`gray_geometry`, libjpeg's ``JCS_GRAYSCALE`` output), and 1/2, 1/4
+and 1/8 scaled decodes (:func:`decode_planes_scaled`): the reduced IDCTs of
+jidctred.c as torch ops, as ``hipe_tpu`` has them in XLA ops, and K6 for a
+component whose scaled DCT size stays 8.
 """
 
 from __future__ import annotations
@@ -45,6 +49,18 @@ _F_1_961570560 = 16069
 _F_2_053119869 = 16819
 _F_2_562915447 = 20995
 _F_3_072711026 = 25172
+
+# jidctred.c fixed-point constants (the reduced IDCTs, CONST_BITS = 13).
+_R_0_211164243 = 1730
+_R_0_509795579 = 4176
+_R_0_601344887 = 4926
+_R_0_720959822 = 5906
+_R_0_850430095 = 6967
+_R_1_061594337 = 8697
+_R_1_272758580 = 10426
+_R_1_451774981 = 11893
+_R_2_172734803 = 17799
+_R_3_624509785 = 29692
 
 # jdcolor.c constants (SCALEBITS = 16).
 _SCALEBITS = 16
@@ -145,10 +161,62 @@ def _idct_planes_core(blocks: torch.Tensor) -> torch.Tensor:
     return _range_limit(out).to(torch.uint8)
 
 
+def _idct4_1d(d: list, final: bool) -> list:
+    """One 4-point reduced IDCT pass (jidctred.c jpeg_idct_4x4) over the 7
+    coefficient rows or columns it uses, in index order 0, 1, 2, 3, 5, 6, 7
+    (frequency 4 never reaches a 4-point output). int32, as islow's."""
+    d0, d1, d2, d3, d5, d6, d7 = d
+    shift = (CONST_BITS - PASS1_BITS + 1) if not final else (CONST_BITS + PASS1_BITS + 3 + 1)
+    t0 = d0 << (CONST_BITS + 1)
+    t2 = d2 * _F_1_847759065 - d6 * _F_0_765366865
+    t10, t12 = t0 + t2, t0 - t2
+    o0 = (d7 * -_R_0_211164243 + d5 * _R_1_451774981
+          + d3 * -_R_2_172734803 + d1 * _R_1_061594337)
+    o2 = (d7 * -_R_0_509795579 + d5 * -_R_0_601344887
+          + d3 * _F_0_899976223 + d1 * _F_2_562915447)
+    return [_descale(t10 + o2, shift), _descale(t12 + o0, shift),
+            _descale(t12 - o0, shift), _descale(t10 - o2, shift)]
+
+
+def _idct2_1d(d: list, final: bool) -> list:
+    """One 2-point reduced IDCT pass (jidctred.c jpeg_idct_2x2) over the 5
+    coefficient rows or columns it uses, in index order 0, 1, 3, 5, 7 (the
+    even frequencies 2, 4, 6 never reach a 2-point output)."""
+    d0, d1, d3, d5, d7 = d
+    shift = (CONST_BITS - PASS1_BITS + 2) if not final else (CONST_BITS + PASS1_BITS + 3 + 2)
+    t10 = d0 << (CONST_BITS + 2)
+    t0 = (d7 * -_R_0_720959822 + d5 * _R_0_850430095
+          + d3 * -_R_1_272758580 + d1 * _R_3_624509785)
+    return [_descale(t10 + t0, shift), _descale(t10 - t0, shift)]
+
+
+# Reduced IDCT size -> (the coefficient indices it uses, its 1-D pass).
+_REDUCED = {4: ((0, 1, 2, 3, 5, 6, 7), _idct4_1d), 2: ((0, 1, 3, 5, 7), _idct2_1d)}
+
+
+def _idct_planes_reduced(blocks: torch.Tensor, ssize: int) -> torch.Tensor:
+    """(..., 8, 8) dequantized int32 blocks -> (..., ssize, ssize) uint8
+    samples: jidctred.c's jpeg_idct_4x4, 2x2 and 1x1 (the DC alone), and the
+    full islow IDCT at 8. Column pass, row pass, range limit, as
+    :func:`_idct_planes_core`."""
+    if ssize == 8:
+        return _idct_planes_core(blocks)
+    if ssize == 1:
+        return _range_limit(_descale(blocks[..., :1, :1], 3)).to(torch.uint8)
+    if ssize not in _REDUCED:
+        raise ValueError(f"unsupported reduced IDCT size: {ssize}")
+    used, pass1d = _REDUCED[ssize]
+    idx = torch.tensor(used, device=blocks.device)
+    sel = blocks.index_select(-2, idx).index_select(-1, idx)
+    ws = torch.stack(pass1d([sel[..., i, :] for i in range(len(used))], final=False), dim=-2)
+    out = torch.stack(pass1d([ws[..., :, j] for j in range(len(used))], final=True), dim=-1)
+    return _range_limit(out).to(torch.uint8)
+
+
 def _grid_from_planes(blocks: torch.Tensor) -> torch.Tensor:
-    """(..., Hb, Wb, 8, 8) blocks -> the (..., Hb*8, Wb*8) sample grid."""
-    *lead, hb, wb, _, _ = blocks.shape
-    return blocks.transpose(-3, -2).reshape(*lead, hb * 8, wb * 8)
+    """(..., Hb, Wb, s, s) blocks -> the (..., Hb*s, Wb*s) sample grid."""
+    *lead, hb, wb, s, _ = blocks.shape
+    return blocks.transpose(-3, -2).reshape(*lead, hb * s, wb * s)
 
 
 def idct8x8_islow(coefs: torch.Tensor, qtable) -> torch.Tensor:
@@ -256,29 +324,39 @@ def _rgb_rows(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Tens
     return rgb.reshape(*rgb.shape[:-2], rgb.shape[-2] * 3)
 
 
-def _decode_rgb_rows_from_planes(geo: "DecodeGeometry", grids: list,
-                                 out: torch.Tensor | None = None) -> torch.Tensor:
-    """The three components' sample grids ``(B, Hb_i*8, Wb_i*8)`` uint8 ->
-    interleaved RGB rows ``(B, H, W*3)`` uint8, in batch chunks.
+def _cmyk_rows(comps: list, color: int) -> torch.Tensor:
+    """Four full-size sample grids (..., H, W) -> interleaved CMYK rows
+    (..., H, W*4) uint8. YCCK (``color`` 5, Adobe transform 2): jdcolor.c's
+    ycck_cmyk_convert, the YCbCr -> RGB conversion of components 0-2
+    inverted (255 - x) and K as it is; CMYK (4): every component as it is."""
+    if color == 5:
+        rgb = ycc_to_rgb(comps[0], comps[1], comps[2])
+        out = torch.cat([255 - rgb.to(torch.int32), comps[3].to(torch.int32)[..., None]],
+                        dim=-1).to(torch.uint8)
+    else:
+        out = torch.stack([c.to(torch.uint8) for c in comps], dim=-1)
+    return out.reshape(*out.shape[:-2], out.shape[-2] * 4)
 
-    Each chroma grid is cropped to its downsampled size, upsampled by its
-    own ratio (:func:`upsample_component`, int16) and colour-converted with
-    the cropped luma. ``hipe_tpu`` splits the 4:2:0/4:2:2/4:4:0 layouts into
-    phase grids to suit the TPU's lanes; the integers are the same.
-    """
-    hgt, wid = geo.height, geo.width
-    b = grids[0].shape[0]
-    if out is None:
-        out = torch.empty((b, hgt, wid * 3), dtype=torch.uint8, device=grids[0].device)
-    ratios, dims = [], []
-    for ci in (1, 2):
+
+def _upsampled(geo: "DecodeGeometry", grids: list, s: slice, sizes: tuple, mins: int,
+               out_h: int, out_w: int) -> list:
+    """Batch chunk ``s`` of every component's sample grid, cropped to its
+    (scaled) downsampled dims, upsampled to the output (int16; a component
+    at the output's resolution stays uint8) and cropped to (out_h, out_w).
+    ``sizes`` are the components' scaled DCT sizes and ``mins`` the luma's
+    (all 8 at full size). libjpeg replicates every ratio at ``mins`` 1 (a
+    1/8 decode); otherwise it selects as :func:`upsample_component`, whose
+    narrow-plane guard then acts on the scaled width."""
+    out = []
+    for ci, g in enumerate(grids):
         h_samp, v_samp, _, _ = geo.comps[ci]
-        ratios.append((geo.max_h // h_samp, geo.max_v // v_samp))
-        dims.append(_downsampled_dims(geo, ci))
-    for s in _chunks(b, hgt * wid):
-        chroma = [upsample_component(grids[ci][s, :dh, :dw], hr, vr)[..., :hgt, :wid]
-                  for ci, (hr, vr), (dh, dw) in zip((1, 2), ratios, dims)]
-        out[s] = _rgb_rows(grids[0][s, :hgt, :wid], *chroma)
+        hr = geo.max_h * mins // (h_samp * sizes[ci])
+        vr = geo.max_v * mins // (v_samp * sizes[ci])
+        dh, dw = _scaled_down_dims(geo, ci, sizes[ci])
+        x = g[s, :dh, :dw]
+        if (hr, vr) != (1, 1):
+            x = _replicate(x, hr, vr) if mins == 1 else upsample_component(x, hr, vr)
+        out.append(x[..., :out_h, :out_w])
     return out
 
 
@@ -306,23 +384,111 @@ def geometry_of(co) -> DecodeGeometry:
         color=co.color_space if co.num_components == 4 else 3)
 
 
-def _downsampled_dims(geo: DecodeGeometry, ci: int) -> tuple[int, int]:
-    """A component's real sample dims (jdmaster.c downsampled_width/height)."""
-    h_samp, v_samp, _, _ = geo.comps[ci]
-    return -(-geo.height * v_samp // geo.max_v), -(-geo.width * h_samp // geo.max_h)
+def gray_geometry(geo: DecodeGeometry) -> DecodeGeometry:
+    """The 1-component view of a colour stream's geometry: libjpeg's
+    ``JCS_GRAYSCALE`` decode of a YCbCr stream runs no chroma IDCT and
+    copies the range-limited luma, which is the 1-component decode of
+    component 0. Only for streams whose luma is at full resolution."""
+    h_samp, v_samp, wb, hb = geo.comps[0]
+    if (h_samp, v_samp) != (geo.max_h, geo.max_v):
+        raise ValueError(f"gray_geometry needs full-resolution luma, got {geo.comps}")
+    return DecodeGeometry(width=geo.width, height=geo.height, ncomps=1,
+                          comps=((h_samp, v_samp, wb, hb),), max_h=h_samp, max_v=v_samp)
 
 
 def supported(geo: DecodeGeometry) -> bool:
-    """True if the geometry decodes on the card: grayscale, and 3 components
+    """True if the geometry decodes on the card: grayscale; 3 components
     with luma at full resolution and integer chroma ratios (4:4:4, 4:2:2,
-    4:2:0, 4:4:0, 4:1:1, 4:1:0, 3:1:1, mismatched Cb/Cr). Fractional ratios
-    and subsampled luma go to the host codec, as in ``hipe_tpu``;
-    4-component streams are not ported yet (ROADMAP.md)."""
+    4:2:0, 4:4:0, 4:1:1, 4:1:0, 3:1:1, mismatched Cb/Cr); Adobe CMYK or YCCK
+    with integer ratios. Fractional ratios and subsampled luma go to the
+    host codec, as in ``hipe_tpu``."""
     if geo.ncomps == 1:
         return True
+    if geo.ncomps == 4:
+        return geo.color in (4, 5) and not any(
+            geo.max_h % h or geo.max_v % v for h, v, _, _ in geo.comps)
     if geo.ncomps != 3 or geo.comps[0][:2] != (geo.max_h, geo.max_v):
         return False
     return not any(geo.max_h % h or geo.max_v % v for h, v, _, _ in geo.comps[1:])
+
+
+# Scale denominator -> the luma's scaled DCT size (libjpeg's min_DCT_scaled_size).
+_MIN_SCALED = {1: 8, 2: 4, 4: 2, 8: 1}
+
+
+def scaled_sizes(geo: DecodeGeometry, scale_denom: int) -> tuple[int, ...]:
+    """Each component's scaled DCT size at 1/scale_denom, as jdmaster.c
+    picks it: from 8/scale_denom, doubled while the component's sampling
+    ratio absorbs it. So 4:2:0 chroma comes out at the output's resolution,
+    while 4:2:2 and 4:4:0 chroma keep a 2x upsample along one axis."""
+    mins = _MIN_SCALED[scale_denom]
+    sizes = []
+    for h_samp, v_samp, _, _ in geo.comps:
+        ssize = mins
+        while (ssize < 8 and (geo.max_h * mins) % (h_samp * ssize * 2) == 0
+               and (geo.max_v * mins) % (v_samp * ssize * 2) == 0):
+            ssize *= 2
+        sizes.append(ssize)
+    return tuple(sizes)
+
+
+def _scaled_down_dims(geo: DecodeGeometry, ci: int, ssize: int) -> tuple[int, int]:
+    """A component's sample dims at scaled DCT size ``ssize`` (jdmaster.c)."""
+    h_samp, v_samp, _, _ = geo.comps[ci]
+    return (-(-geo.height * v_samp * ssize // (geo.max_v * 8)),
+            -(-geo.width * h_samp * ssize // (geo.max_h * 8)))
+
+
+def supported_scaled(geo: DecodeGeometry, scale_denom: int) -> bool:
+    """True if a 1/scale_denom decode runs on the card (else the host's)."""
+    if scale_denom == 1:
+        return supported(geo)
+    if scale_denom not in (2, 4, 8) or not supported(geo):
+        return False
+    sizes = scaled_sizes(geo, scale_denom)
+    mins = _MIN_SCALED[scale_denom]
+    # A fractional scaled ratio goes to the host.
+    return not any((geo.max_h * mins) % (h * ss) or (geo.max_v * mins) % (v * ss)
+                   for (h, v, _, _), ss in zip(geo.comps, sizes))
+
+
+def _flat(coefs: torch.Tensor) -> torch.Tensor:
+    """(..., Hb, Wb, 64) -> a contiguous (B, Hb, Wb, 64)."""
+    return coefs.reshape(-1, *coefs.shape[-3:]).contiguous()
+
+
+def _scaled_grid(coefs: torch.Tensor, qtable, ssize: int) -> torch.Tensor:
+    """(B, Hb, Wb, 64) coefficients -> (B, Hb*ssize, Wb*ssize) uint8 samples
+    at scaled DCT size ``ssize``: K6 at 8, the reduced IDCTs (torch ops, in
+    batch chunks) below it."""
+    if ssize == 8:
+        return dequant_idct_cuda(coefs, qtable)
+    b, hb, wb, _ = coefs.shape
+    out = torch.empty((b, hb * ssize, wb * ssize), dtype=torch.uint8, device=coefs.device)
+    for s in _chunks(b, hb * wb * 64):
+        out[s] = _grid_from_planes(_idct_planes_reduced(_dequant_planes(coefs[s], qtable),
+                                                        ssize))
+    return out
+
+
+def _rows_from_grids(geo: DecodeGeometry, grids: list, scale_denom: int = 1,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """The components' sample grids ``(B, ...)`` uint8 at a 1/scale_denom
+    decode -> interleaved rows ``(B, H', W'*C)`` uint8, in batch chunks:
+    each grid cropped to its downsampled dims and upsampled by its own
+    ratio (:func:`_upsampled`), then colour-converted (YCbCr -> RGB, or
+    CMYK/YCCK). ``hipe_tpu`` splits the 4:2:0/4:2:2/4:4:0 layouts into
+    phase grids to suit the TPU's lanes; the integers are the same."""
+    sizes, mins = scaled_sizes(geo, scale_denom), _MIN_SCALED[scale_denom]
+    out_h, out_w = -(-geo.height // scale_denom), -(-geo.width // scale_denom)
+    b, c = grids[0].shape[0], geo.ncomps
+    if out is None:
+        out = torch.empty((b, out_h, out_w * c), dtype=torch.uint8, device=grids[0].device)
+    for s in _chunks(b, out_h * out_w):
+        comps = _upsampled(geo, grids, s, sizes, mins, out_h, out_w)
+        out[s] = (comps[0] if c == 1 else _cmyk_rows(comps, geo.color) if c == 4
+                  else _rgb_rows(*comps))
+    return out
 
 
 def decode_planes(geo: DecodeGeometry, comp_coefs: list, qtables: list,
@@ -334,32 +500,47 @@ def decode_planes(geo: DecodeGeometry, comp_coefs: list, qtables: list,
     carry through. ``layout="hwc"`` returns (..., H, W, C), ``"rows"``
     (..., H, W*C), the interleaved rows ``Pipeline.apply_rows`` takes. On a
     CUDA tensor each component's dequantize + IDCT is one K6 launch.
+    ``hipe_tpu`` runs the four IDCTs of a CMYK/YCCK stream as one graph;
+    K6 computes the same function a block, so the integers are the same.
     """
+    return decode_planes_scaled(geo, comp_coefs, qtables, 1, layout)
+
+
+def decode_planes_scaled(geo: DecodeGeometry, comp_coefs: list, qtables: list,
+                         scale_denom: int, layout: str = "hwc") -> torch.Tensor:
+    """Decode at 1/scale_denom (1, 2, 4 or 8), libjpeg's DCT-domain scaled
+    decode bit for bit (jdmaster.c and jidctred.c): each component runs the
+    IDCT of the scaled size libjpeg picks (:func:`scaled_sizes`; K6 where it
+    is 8, as for 4:2:0 chroma at 1/2), then chroma whose size could not
+    absorb its sampling ratio (4:2:2, 4:4:0) is upsampled at the scaled
+    resolution, as jdsample.c does. Output dims are ceil(dim/scale_denom);
+    arguments and layouts as :func:`decode_planes`."""
     if layout not in ("hwc", "rows"):
         raise ValueError(f"layout must be 'hwc' or 'rows', got {layout!r}")
-    if geo.ncomps == 4:
-        raise ValueError("4-component (CMYK/YCCK) device decode is not ported yet; "
-                         "ROADMAP.md lists it")
-    if not supported(geo):
-        raise ValueError(f"unsupported sampling geometry: {geo.comps}")
+    if not supported_scaled(geo, scale_denom):
+        raise ValueError(f"unsupported sampling geometry: {geo.comps} at 1/{scale_denom}")
     lead = comp_coefs[0].shape[:-3]
-    grids = [dequant_idct_cuda(c.reshape(-1, *c.shape[-3:]).contiguous(), q)
-             for c, q in zip(comp_coefs, qtables)]
-    c = geo.ncomps
-    if c == 1:
-        rows = grids[0][:, :geo.height, :geo.width]
-    else:
-        rows = _decode_rgb_rows_from_planes(geo, grids)
-    rows = rows.reshape(*lead, geo.height, geo.width * c)
-    return rows if layout == "rows" else rows.reshape(*lead, geo.height, geo.width, c)
+    grids = [_scaled_grid(_flat(c), q, ss)
+             for c, q, ss in zip(comp_coefs, qtables, scaled_sizes(geo, scale_denom))]
+    rows = _rows_from_grids(geo, grids, scale_denom)
+    h, w = rows.shape[1], rows.shape[2] // geo.ncomps
+    return rows.reshape(*lead, h, w * geo.ncomps) if layout == "rows" else \
+        rows.reshape(*lead, h, w, geo.ncomps)
 
 
 def decode_coefficients(co, device=None) -> torch.Tensor:
     """Decode a :class:`hipe_tpu_torch.io_.jpeg.JpegCoefficients` on the
     card (``device``, default ``cuda``) -> (H, W, C) uint8."""
+    return decode_coefficients_scaled(co, 1, device)
+
+
+def decode_coefficients_scaled(co, scale_denom: int, device=None) -> torch.Tensor:
+    """:func:`decode_coefficients` at 1/scale_denom -> (ceil(H/scale_denom),
+    ceil(W/scale_denom), C) uint8."""
     dev = torch.device("cuda" if device is None else device)
     coefs = [torch.from_numpy(c.coefs).to(dev) for c in co.components]
-    return decode_planes(geometry_of(co), coefs, [c.qtable for c in co.components])
+    return decode_planes_scaled(geometry_of(co), coefs, [c.qtable for c in co.components],
+                                scale_denom)
 
 
 def make_batch_decoder(geo: DecodeGeometry, qtables: list):

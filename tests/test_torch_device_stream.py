@@ -120,6 +120,8 @@ def test_importing_the_port_imports_no_jax():
             "hipe_tpu_torch.ops._build, hipe_tpu_torch.io_.jpeg, "
             "hipe_tpu_torch.ops.jpeg_decode, hipe_tpu_torch.ops.jpeg_encode, "
             "hipe_tpu_torch.ops.cuda_dct, hipe_tpu_torch.runtime.serve, "
+            "hipe_tpu_torch.ops.resize, hipe_tpu_torch.ops.equalize, "
+            "hipe_tpu_torch.ops.jpeg_transform, "
             "hipe_tpu_torch.runtime.engine, hipe_tpu_torch.runtime.fleet, "
             "hipe_tpu_torch.runtime.stream, hipe_tpu_torch.parallel.autotune, "
             "hipe_tpu_torch.parallel.mesh, hipe_tpu_torch.parallel.partitioner, "

@@ -219,12 +219,15 @@ def test_batch_decoder_matches_single_decodes():
 
 
 def test_four_component_streams_raise_naming_the_roadmap():
+    # 4-component streams are ported: they decode, as hipe_tpu's and libjpeg do.
     data = hjpeg.encode_cmyk_bytes(_img(16, 16, 4, seed=1), ycck=True)
     co = tjpeg.read_coefficients(data)
     geo = tjd.geometry_of(co)
-    assert geo.ncomps == 4 and geo.color == 5 and not tjd.supported(geo)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        tjd.decode_coefficients(co, device="cpu")
+    assert geo.ncomps == 4 and geo.color == 5 and tjd.supported(geo)
+    got = tjd.decode_coefficients(co, device="cpu").numpy()
+    np.testing.assert_array_equal(got, hjpeg.decode_bytes(data))
+    np.testing.assert_array_equal(got, np.asarray(hjd.decode_coefficients(
+        hjpeg.read_coefficients(data))))
 
 
 def test_unsupported_geometries_match_hipe_tpu():
@@ -412,8 +415,22 @@ def test_unsupported_geometry_falls_back_to_the_host_decode():
     ("decode_gray", True), ("colorize", np.zeros((3, 256), np.uint8)),
 ])
 def test_unported_serving_options_raise(option, value):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        ServingPipeline("blur3", device=CPU, **{option: value})
+    # The options are ported: each gives hipe_tpu's bytes, or its error
+    # (colorize on a colour stage output).
+    payloads = _payloads(n=2, seed=13)
+    try:
+        want = JaxServingPipeline("blur3", use_pallas=False,
+                                  **{option: value}).process_batch(payloads)
+    except ValueError as e:
+        want = e
+    with ServingPipeline("blur3", device=CPU, decode_on_device=True, encode_on_device=True,
+                         **{option: value}) as sp:
+        if isinstance(want, ValueError):
+            with pytest.raises(ValueError, match="grayscale stage output"):
+                sp.process_batch(payloads)
+            assert option == "colorize" and "grayscale stage output" in str(want)
+        else:
+            assert sp.process_batch(payloads) == want
 
 
 def test_serving_checks_its_device_and_layout():

@@ -154,6 +154,27 @@ driven only where phase 1 finds it (phase 20).
     ``transform`` rot90/rot270 round trip; elsewhere a line says why not.
     Then the phase's seconds.
 
+21. The global-statistics family (``GlobalStatsPipeline``; PyTorch ops, as
+    they are XLA ops in ``hipe_tpu``): ``DeviceStreamRunner`` over the
+    5000-image stream for equalize, autocontrast (plain, ``cutoff=2``,
+    ``preserve_tone``), contrast 1.5, color 2.2, sharpness 2.0, mode and
+    mode5: ms a pass (CUDA events; fewer passes for the mode filters), its
+    bound (the bytes a pass must move; the pairwise form's int32
+    operations for the mode filters), peak device memory, the device's idle
+    share over a pass, the first image against the NumPy oracle and the
+    first 16 of a kept pass against the same op on CPU tensors; sharpness's
+    K3 launches (one a chunk of a pass; no other op launches a kernel) and
+    a pass with K3 swapped for its plain version. 64 varied 256x256 images
+    (the kinds of ``tests/test_equalize.py``, quantized levels, the float64
+    quirk) against the NumPy oracles on each path (for mode and mode5, whose
+    oracle is slow, a plane of one image of each kind, and all 64 against
+    the CPU). The engine: approach 1
+    ``gpu`` at batch 500 with equalize over phase 19's stream, batch 0
+    against the oracle. Serving: ``decode_filter_fn`` and ``transcode_fn``
+    with equalize, autocontrast ``cutoff=2`` and contrast 1.5 over phase
+    18's coefficient stream, as phase 20 drives its paths (K6, K7). Every
+    max_abs_err must be 0. Then the phase's seconds.
+
 Then one JSON line of per-kernel results (each kernel's launches on its
 main path, its worst error against the plain version, its time and the
 plain version's a pass, and its bound: the larger of the bytes it must move
@@ -1564,8 +1585,9 @@ def outputs_err(got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(got, want))
 
 
-def drive_serving_path(card: str, label: str, fn, inputs, cpu_fn, per_pass: dict) -> dict:
-    """One path of phase 20: SERVE_REPS timed passes after a warm-up and one
+def drive_serving_path(card: str, label: str, fn, inputs, cpu_fn, per_pass: dict,
+                       phase: str = "20 serving options") -> dict:
+    """One path of phase 20 (or 21): SERVE_REPS timed passes after a warm-up and one
     kept pass, the launches over them alone (exactly ``per_pass`` a pass,
     no other kernel), the kept pass against the same path on the plain
     kernels and its first CPU_IMAGES images against ``cpu_fn`` on CPU
@@ -1590,7 +1612,7 @@ def drive_serving_path(card: str, label: str, fn, inputs, cpu_fn, per_pass: dict
         raise AssertionError(f"{label}: max-abs {err} against the plain kernels, {cpu_err} "
                              "against the CPU path")
     launched = {k: n for k, n in counts.items() if n}
-    print(f"[20 serving options] {label}: {ms:.4f} ms a pass over {inputs[0].shape[0]} images; "
+    print(f"[{phase}] {label}: {ms:.4f} ms a pass over {inputs[0].shape[0]} images; "
           f"launches {launched} over {runs} passes; max_abs_err {err} against the plain "
           f"kernels, {cpu_err} against the CPU path on the first {CPU_IMAGES} images "
           f"[{card}]", flush=True)
@@ -1725,6 +1747,243 @@ def phase_serving_options(card: str) -> dict:
     return {"paths": paths, "launches": totals, "secs": secs}
 
 
+# Phase 21: the global-statistics family.
+STATS_PATHS = (("equalize", {}), ("autocontrast", {}), ("autocontrast", {"cutoff": 2}),
+               ("autocontrast", {"preserve_tone": True}), ("contrast", {"factor": 1.5}),
+               ("color", {"factor": 2.2}), ("sharpness", {"factor": 2.0}), ("mode", {}),
+               ("mode5", {}))
+# Chained passes a timing of each path (3 timings after as many warm-up
+# passes): the mode filters' pairwise form takes far longer a pass.
+STATS_TIMED_PASSES = {"mode": 2, "mode5": 1}
+STATS_PASSES = 5
+# Times the stream's bytes a pass must move: equalize, autocontrast and
+# contrast read it for their statistics, then read and write it; color and
+# mode read and write it; sharpness reads and writes it through K3 (the
+# SMOOTH plane), then reads it and the SMOOTH plane and writes the blend.
+STATS_STREAM_BYTES = {"equalize": 3, "autocontrast": 3, "contrast": 3, "color": 2,
+                      "sharpness": 5, "mode": 2, "mode5": 2}
+STATS_BATCH = 64  # varied 256x256 images held against the NumPy oracles
+STATS_KINDS = ("uniform", "lowrange", "skewed", "constant", "twovals", "sparse", "overflow",
+               "levels", "float_quirk")
+
+
+def mode_ops(size: int) -> int:
+    """Integer operations a pixel of the mode filter's pairwise form, by
+    hand: a compare a distinct offset of two window positions (12 for size
+    3, 40 for 5), two adds a pair of the window's J values, five a value for
+    its key (compare, shift, add, select, max), five to decode the best key
+    and gate it on the centre."""
+    j = size * size
+    return ((2 * size - 1) ** 2 - 1) // 2 + j * (j - 1) + 5 * j + 5
+
+
+def stats_image(kind: str, seed: int) -> np.ndarray:
+    """A 256x256x3 image of one of tests/test_equalize.py's kinds (its 8x8
+    "tiny" case, step 0, as "sparse": fewer than 255 pixels off the last
+    bin), quantized levels (real modes) and autocontrast's float64 quirk."""
+    rng = np.random.default_rng(seed)
+    shape = (SIDE, SIDE, CHANNELS)
+    if kind == "uniform":
+        return rng.integers(0, 256, shape, np.uint8)
+    if kind == "lowrange":
+        return rng.integers(90, 110, shape, np.uint8)
+    if kind == "skewed":
+        return np.clip(rng.normal(40, 12, shape), 0, 255).astype(np.uint8)
+    if kind == "constant":
+        return np.full(shape, 77, np.uint8)
+    if kind == "twovals":
+        return np.where(rng.random(shape) < 0.7, 10, 200).astype(np.uint8)
+    if kind == "levels":
+        return (rng.integers(0, 4, shape) * 85).astype(np.uint8)
+    if kind == "float_quirk":
+        img = rng.integers(26, 34, shape).astype(np.uint8)
+        img[0, 0], img[0, 1] = 26, 33
+        return img
+    img = np.full(shape, 200, np.uint8)
+    flat = img.reshape(-1, CHANNELS)
+    count = 100 if kind == "sparse" else 5536  # "overflow": raw LUT values past 255
+    idx = rng.choice(len(flat), count, replace=False)
+    flat[idx] = rng.integers(0, 21, (count, CHANNELS)).astype(np.uint8)
+    return img
+
+
+@contextlib.contextmanager
+def plain_k3():
+    """While the block runs, K3 is its plain version on the card (in chunks)
+    wherever the port calls it: sharpness's SMOOTH plane on the plain chain."""
+    from hipe_tpu_torch.ops import cuda_rank_chain
+
+    def plain(x, names, h_pad=True, rows_per_block=None, out=None):
+        y = plain_chunked(x, tuple(names), h_pad)
+        return y if out is None else out.copy_(y)
+
+    saved = cuda_rank_chain.rank_chain_planar_cuda
+    cuda_rank_chain.rank_chain_planar_cuda = plain
+    try:
+        yield
+    finally:
+        cuda_rank_chain.rank_chain_planar_cuda = saved
+
+
+def oracle_err(pipe, batch: np.ndarray, got: torch.Tensor) -> int:
+    """Max-abs error of ``got`` (planar, on the card) against the pipeline's
+    NumPy oracle on each image of ``batch``, the oracles in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hipe_tpu_torch.utils.images import hwc_to_planar
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        want = np.stack(list(pool.map(pipe.oracle, batch)))
+    return max_abs_err(got, torch.from_numpy(hwc_to_planar(want)).to(got.device))
+
+
+def phase_global_stats(card: str) -> dict:
+    """Phase 21: the global-statistics family over the 5000-image stream,
+    a varied batch against the NumPy oracles, the engine and three serving
+    paths; K3's launches (sharpness) and K6's and K7's (serving)."""
+    from hipe_tpu_torch.io_.jpeg import quality_tables
+    from hipe_tpu_torch.models.pipelines import GlobalStatsPipeline, global_stats_chunk
+    from hipe_tpu_torch.ops import jpeg_encode as je
+    from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
+    from hipe_tpu_torch.runtime.engine import Engine, EngineConfig
+    from hipe_tpu_torch.runtime.serve import ServingPipeline
+    from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
+
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    batch = np.stack([stats_image(STATS_KINDS[i % len(STATS_KINDS)], seed=i)
+                      for i in range(STATS_BATCH)])
+    batch_planes = torch.from_numpy(hwc_to_planar(batch)).to(dev)
+    paths = {}
+    k3_launches = 0
+    for name, params in STATS_PATHS:
+        t_path = time.perf_counter()
+        pipe = GlobalStatsPipeline(name, **params)
+        label = name + "".join(f" {k}={v}" for k, v in params.items())
+        wrappers = reset_counts()
+        runner = DeviceStreamRunner(pipe, num_images=NUM_IMAGES, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        err = runner.verify_max_abs_err()  # the first image against the NumPy oracle
+        passes = STATS_TIMED_PASSES.get(name, STATS_PASSES)
+        ms = runner.measure_throughput(passes=passes, reps=3)["per_pass_s"] * 1e3
+        kept = runner.run_passes(1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        runs = 1 + 4 * passes + 1  # verify, warm-up and 3 timings, the kept pass
+        chunks = -(-runner.stream.shape[0] // global_stats_chunk(SIDE, SIDE, CHANNELS, name))
+        expect = {"K3": chunks * runs} if name == "sharpness" else {}
+        counts = check_counts(wrappers, expect, label)
+        if name == "sharpness" and counts["K3"] != chunks * runs:
+            raise AssertionError(f"sharpness: K3 launched {counts['K3']} times, expected "
+                                 f"{chunks} chunks x {runs} passes")
+        k3_launches += counts["K3"]
+        head = CPU_IMAGES * CHANNELS
+        cpu_err = max_abs_err(kept[:head].cpu(), pipe.apply_planar(runner.stream[:head].cpu()))
+        plain_err = None
+        if name == "sharpness":
+            with plain_k3():
+                plain_err = max_abs_err(kept, runner.run_passes(1))
+        busy = device_busy(lambda: runner.run_passes(1))
+        del kept, runner
+        torch.cuda.empty_cache()
+        varied = pipe.apply_planar(batch_planes)
+        if name.startswith("mode"):
+            # The mode oracle moves some 2-5 GB of host memory a plane: the
+            # first channel of one image of each kind against it, and the
+            # whole batch against the CPU path.
+            n = len(STATS_KINDS)
+            batch_err = max(oracle_err(pipe, batch[:n, ..., :1], varied[:n * CHANNELS:CHANNELS]),
+                            max_abs_err(varied.cpu(), pipe.apply_planar(batch_planes.cpu())))
+        else:
+            n = STATS_BATCH
+            batch_err = oracle_err(pipe, batch, varied)
+        del varied
+        worst = max(err, cpu_err, batch_err, plain_err or 0)
+        if worst:
+            raise AssertionError(f"{label}: max-abs {err} (first image against the oracle), "
+                                 f"{cpu_err} (first {CPU_IMAGES} against the CPU), "
+                                 f"{batch_err} (varied batch against the oracles), "
+                                 f"{plain_err} (against plain K3)")
+        pixels = NUM_IMAGES * SIDE * SIDE * CHANNELS
+        t_bytes = STATS_STREAM_BYTES[name] * pixels / HBM_BYTES_PER_S * 1e3
+        t_ops = (mode_ops(5 if name == "mode5" else 3) * pixels / INT32_OPS_PER_S * 1e3
+                 if name.startswith("mode") else 0.0)
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        launched = {k: n for k, n in counts.items() if n}
+        print(f"[21 global stats] {label}: {ms:.4f} ms a pass ({passes} passes, median of 3), "
+              f"{NUM_IMAGES * 1e3 / ms:.1f} img/s; bound {bound_ms:.4f} ms ({bound_by}); "
+              f"{chunks} chunks; peak memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB "
+              f"resident); device idle over a pass {1 - busy[1] / busy[0]:.2%}; launches "
+              f"{launched or 'none'} over {runs} passes; max_abs_err {err} (first image "
+              f"against the oracle), {cpu_err} (first {CPU_IMAGES} against the CPU), "
+              f"{batch_err} ({STATS_BATCH} varied images against the "
+              + ("oracles" if n == STATS_BATCH else f"CPU, a plane of {n} against the oracle")
+              + ")"
+              + ("" if plain_err is None else f", {plain_err} (against plain K3)")
+              + f"; path {time.perf_counter() - t_path:.1f} s [{card}]", flush=True)
+        paths[label] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "peak": peak,
+                        "idle": 1 - busy[1] / busy[0], "err": worst, "counts": counts}
+    del batch_planes
+
+    # The engine: approach 1 'gpu' at batch 500 with equalize over phase 19's stream.
+    t_path = time.perf_counter()
+    distinct = np.random.default_rng(19).integers(0, 256, (A_DISTINCT, A_H, A_W, CHANNELS),
+                                                  dtype=np.uint8)
+    wrappers = reset_counts()
+    eng = Engine(EngineConfig(approach=1, mode="gpu", batch_size=500, num_images=NUM_IMAGES,
+                              pipeline="equalize"))
+    stats = eng.run(stream=SeededStream(distinct, NUM_IMAGES, 500))
+    counts = check_counts(wrappers, {}, "engine equalize")
+    pipe = GlobalStatsPipeline("equalize")
+    engine_err = oracle_err(pipe, distinct, torch.from_numpy(
+        hwc_to_planar(eng.first_output)).to(dev))
+    if engine_err:
+        raise AssertionError(f"engine equalize: batch 0 != the oracle: max-abs {engine_err}")
+    print(f"[21 engine] A1 gpu b500 equalize, {NUM_IMAGES} images of {A_W}x{A_H}x{CHANNELS}: "
+          f"wall {stats.wall_ms:.2f} ms, {stats.images_per_sec:.1f} img/s; "
+          f"{lane_text('gpu', stats.accel)}; launches none ({counts}); max_abs_err "
+          f"{engine_err} over batch 0 ({A_DISTINCT} images) against the oracle; "
+          f"{time.perf_counter() - t_path:.1f} s [{card}]", flush=True)
+    engine = {"wall_ms": stats.wall_ms, "img_per_s": stats.images_per_sec, "err": engine_err}
+    del eng, distinct
+
+    # Serving: decode + filter and the transcode over phase 18's stream.
+    geo = je.encode_geometry(SIDE, SIDE, CHANNELS, "420")
+    luma, chroma = quality_tables(90)
+    qt = [luma, chroma, chroma]
+    qkey = tuple(tuple(int(v) for v in q) for q in qt)
+    one = torch.from_numpy(checker_image(SIDE, SIDE, CHANNELS, seed=0)).to(dev)[None]
+    coefs = tuple(c.expand(NUM_IMAGES, *c.shape[1:]).contiguous()
+                  for c in je.encode_planes(geo, one, qt))
+    serving = {}
+    totals = {"K6": 0, "K7": 0}
+    for name, params in (("equalize", {}), ("autocontrast", {"cutoff": 2}),
+                         ("contrast", {"factor": 1.5})):
+        pipe = GlobalStatsPipeline(name, **params)
+        label = name + "".join(f" {k}={v}" for k, v in params.items())
+        sps = [ServingPipeline(pipe, device=d, decode_on_device=True, encode_on_device=True)
+               for d in (dev, cpu)]
+        for what, per_pass in (("decode_filter_fn", {"K6": 3}),
+                               ("transcode_fn", {"K6": 3, "K7": 3})):
+            res = drive_serving_path(card, f"{label} {what}", getattr(sps[0], what)(geo, qkey),
+                                     coefs, getattr(sps[1], what)(geo, qkey), per_pass,
+                                     phase="21 global stats")
+            serving[f"{label} {what}"] = res
+            for k in totals:
+                totals[k] += res["counts"][k]
+        for sp in sps:
+            sp.close()
+    del coefs
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"[21 global stats] launches over the phase's paths: K3 {k3_launches}, {totals}; "
+          f"phase {secs:.1f} s [{card}]", flush=True)
+    return {"paths": paths, "engine": engine, "serving": serving,
+            "launches": {"K3": k3_launches, **totals}, "secs": secs}
+
+
 def main() -> int:
     from hipe_tpu_torch.ops.blur import FILTER_RADIUS, GAUSSIANS
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
@@ -1767,6 +2026,7 @@ def main() -> int:
     codec = phase_codec_main_paths(card)
     engine = phase_engine(card)
     serving = phase_serving_options(card)
+    stats = phase_global_stats(card)
     transcode = codec["paths"]["transcode"]
     codec_err = max(p["err"] for p in codec["paths"].values())
     # No PyTorch call computes these functions: none takes uint8 planes with
@@ -1831,8 +2091,11 @@ def main() -> int:
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/rank_chain_planar.cu",
         "replaces": "hipe_tpu/ops/pallas_blur.py:273",
-        "launches": denoise["launches"],
-        "max_abs_err": max(k3_err, denoise["chain_err"]),
+        "launches": denoise["launches"] + stats["launches"]["K3"],
+        # Phase 21: sharpness's SMOOTH plane, a launch a chunk of a pass.
+        "global_stats_launches": stats["launches"]["K3"],
+        "max_abs_err": max(k3_err, denoise["chain_err"],
+                           stats["paths"]["sharpness factor=2.0"]["err"]),
         "ms": denoise["ms"],
         "plain_ms": denoise["plain_ms"],
         "bound_ms": denoise["bound_ms"],
@@ -1873,10 +2136,13 @@ def main() -> int:
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/dct_blocks.cu",
         "replaces": "hipe_tpu/ops/pallas_dct.py:72",
-        "launches": transcode["counts"]["K6"] + serving["launches"]["K6"],
+        "launches": (transcode["counts"]["K6"] + serving["launches"]["K6"]
+                     + stats["launches"]["K6"]),
         "launches_per_pass": 3,
         # Phase 20: scaled-size-8, gray, full-size and CMYK/YCCK components.
         "serving_options_launches": serving["launches"]["K6"],
+        # Phase 21: the serving paths with a global-statistics pipeline.
+        "global_stats_launches": stats["launches"]["K6"],
         "max_abs_err": max(k6_err, codec_err),
         "ms": codec["split"]["K6"],
         "plain_ms": codec["plain_k6"],
@@ -1890,10 +2156,13 @@ def main() -> int:
         "route": "cuda",
         "source": "hipe_tpu_torch/csrc/dct_blocks.cu",
         "replaces": "hipe_tpu/ops/pallas_dct.py:155",
-        "launches": transcode["counts"]["K7"] + serving["launches"]["K7"],
+        "launches": (transcode["counts"]["K7"] + serving["launches"]["K7"]
+                     + stats["launches"]["K7"]),
         "launches_per_pass": 3,
         # Phase 20: the encode of every option's transcode.
         "serving_options_launches": serving["launches"]["K7"],
+        # Phase 21: the transcodes with a global-statistics pipeline.
+        "global_stats_launches": stats["launches"]["K7"],
         "max_abs_err": max(k7_err, codec_err),
         "ms": codec["split"]["K7"],
         "plain_ms": codec["plain_k7"],

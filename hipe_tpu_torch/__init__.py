@@ -28,9 +28,12 @@ easy to find:
   :mod:`hipe_tpu_torch.io_.jpeg` — its host entropy layer, the libjpeg codec
   (``csrc/jpeg_codec.cpp``); :mod:`hipe_tpu_torch.ops.jpeg_transform` — the
   lossless DCT-domain transforms; :mod:`hipe_tpu_torch.ops.resize` — the Q14
-  bilinear resize; :mod:`hipe_tpu_torch.ops.equalize` — ``colorize_lut``;
+  bilinear resize; :mod:`hipe_tpu_torch.ops.equalize` — the
+  global-statistics ops (equalize, autocontrast, contrast, color,
+  sharpness, mode) and ``colorize_lut``;
 - :mod:`hipe_tpu_torch.models.pipelines` — ``Pipeline``/``PIPELINES``
-  (``apply_planar``, ``apply_rows``, ``apply_nhwc``);
+  (``apply_planar``, ``apply_rows``, ``apply_nhwc``) and
+  ``GlobalStatsPipeline``;
 - :mod:`hipe_tpu_torch.runtime.device_stream` — ``DeviceStreamRunner``,
   the device-resident stream (5000 images of 256x256, or large frames);
 - :mod:`hipe_tpu_torch.runtime.serve` — ``ServingPipeline``, JPEG decode ->
@@ -76,7 +79,7 @@ def __getattr__(name):
         from hipe_tpu_torch.ops.jpeg_encode import encode_bytes_device
 
         return encode_bytes_device
-    if name in ("Pipeline", "PIPELINES"):
+    if name in ("Pipeline", "PIPELINES", "GlobalStatsPipeline"):
         from hipe_tpu_torch.models import pipelines
 
         return getattr(pipelines, name)

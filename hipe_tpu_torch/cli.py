@@ -13,8 +13,18 @@ grammar::
     python -m hipe_tpu_torch.cli stream q,edge --rank q=5:6
     python -m hipe_tpu_torch.cli stream soft,sharpen --kernel soft=1,2,1,2,4,2,1,2,1:16
 
-The stream's image is ``checker_image(256, 256, 3, seed=0)``. Without a
-CUDA device the command fails: it never runs on the CPU.
+The global-statistics pipelines (equalize, autocontrast, contrast, color,
+sharpness, mode, mode5) take ``--factor`` (contrast/color/sharpness),
+``--cutoff`` and ``--preserve-tone`` (autocontrast), here and on ``serve``,
+``approach1`` and ``approach2``::
+
+    python -m hipe_tpu_torch.cli stream equalize --json
+    python -m hipe_tpu_torch.cli stream autocontrast --cutoff 2 --json
+    python -m hipe_tpu_torch.cli stream contrast --factor 1.5 --json
+
+The stream's image is ``checker_image(256, 256, 3, seed=0)``, or ``--image
+PATH`` (a JPEG; needs libjpeg). Without a CUDA device the command fails: it
+never runs on the CPU.
 
 ``serve`` runs JPEG decode -> filter -> encode over a stream of JPEGs, with
 the same pipeline grammar, in one of four placements (host codec, device
@@ -116,6 +126,20 @@ def _add_register_flags(p: argparse.ArgumentParser) -> None:
              "Repeatable. Example: --rank q=5:6 q,edge")
 
 
+def _add_stats_flags(p: argparse.ArgumentParser) -> None:
+    """--factor, --cutoff and --preserve-tone: the global-statistics settings."""
+    p.add_argument("--factor", type=float, default=None,
+                   help="contrast/color/sharpness only: PIL ImageEnhance strength "
+                        "(bit-exact; 1.0 = identity, <1 reduces, >1 boosts)")
+    p.add_argument("--cutoff", type=int, nargs="+", default=None, metavar="PCT",
+                   help="autocontrast only: trim PCT percent (or two values: low high) "
+                        "of histogram mass from each end before stretching (PIL "
+                        "cutoff semantics, bit-exact)")
+    p.add_argument("--preserve-tone", action="store_true",
+                   help="autocontrast only: PIL preserve_tone, one luminance-derived "
+                        "range applied to all channels (bit-exact)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     from hipe_tpu_torch.ops.jpeg_encode import DEVICE_SUBSAMPLINGS
     from hipe_tpu_torch.ops.jpeg_transform import ALL_OPS
@@ -126,6 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
     st = sub.add_parser("stream", help="device-resident stream on the GPU")
     _add_stage_flags(st)
     st.add_argument("--num-images", type=int, default=5000)
+    st.add_argument("--image", default=None, metavar="PATH",
+                    help=f"input JPEG (default: {IMAGE_NAME}); needs libjpeg")
     st.add_argument("--passes", type=int, default=10)
     st.add_argument("--no-autotune", action="store_true",
                     help="skip the measured rows_per_block selection")
@@ -135,6 +161,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print one JSON result line")
     st.add_argument("--device", default="cuda",
                     help="CUDA device to run on (default: cuda)")
+    _add_stats_flags(st)
     sv = sub.add_parser("serve", help="JPEG decode -> filter -> encode over a "
                                       "stream of JPEGs")
     _add_stage_flags(sv)
@@ -187,6 +214,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default="cuda",
                     help="device to run on (default: cuda; cpu runs the plain "
                          "versions)")
+    _add_stats_flags(sv)
     tr = sub.add_parser("transform", help="lossless DCT-domain transform of JPEG files "
                                           "(the jpegtran analog)")
     tr.add_argument("input", nargs="+",
@@ -248,12 +276,7 @@ def _add_approach_parsers(sub) -> None:
         sp.add_argument("--csv", default=None, metavar="PATH",
                         help="append a per_run.csv-schema row")
         sp.add_argument("--run-index", type=int, default=1)
-        sp.add_argument("--factor", type=float, default=None,
-                        help="contrast/color/sharpness strength: not ported yet")
-        sp.add_argument("--cutoff", type=int, nargs="+", default=None, metavar="PCT",
-                        help="autocontrast trim percent(s): not ported yet")
-        sp.add_argument("--preserve-tone", action="store_true",
-                        help="autocontrast preserve_tone mode: not ported yet")
+        _add_stats_flags(sp)
         _add_register_flags(sp)
 
 
@@ -325,9 +348,37 @@ def _register_cli_ranks(specs) -> str | None:
     return None
 
 
-def _pipeline_of(args, spec: str):
+def _stats_pipeline(args, name: str, channels: int = 3):
+    """The GlobalStatsPipeline that --factor/--cutoff/--preserve-tone set for
+    the pipeline ``name`` (None without them); ValueError on a misuse.
+    ``hipe_tpu``'s checks: --factor takes contrast, color and sharpness,
+    --cutoff (one or two integer percents) and --preserve-tone take
+    autocontrast. Unlike ``hipe_tpu``'s ``stream``, which returns at the
+    first flag it accepts, every flag given is checked."""
+    from hipe_tpu_torch.models.pipelines import GlobalStatsPipeline
+
+    if args.factor is None and args.cutoff is None and not args.preserve_tone:
+        return None
+    if args.factor is not None and name not in ("contrast", "color", "sharpness"):
+        raise ValueError("--factor applies to contrast/color/sharpness only")
+    if (args.cutoff is not None or args.preserve_tone) and (
+            name != "autocontrast" or (args.cutoff is not None and len(args.cutoff) > 2)):
+        raise ValueError("--cutoff/--preserve-tone apply to autocontrast only "
+                         "(one or two integer percents / a flag)")
+    if args.factor is not None:
+        return GlobalStatsPipeline(name, factor=args.factor, channels=channels)
+    cut = 0
+    if args.cutoff is not None:
+        cut = args.cutoff[0] if len(args.cutoff) == 1 else tuple(args.cutoff)
+    return GlobalStatsPipeline("autocontrast", cutoff=cut, preserve_tone=args.preserve_tone,
+                               channels=channels)
+
+
+def _pipeline_of(args, spec: str, channels: int = 3):
     """Register the --kernel/--lut/--rank stages and resolve the pipeline
-    ``spec``; prints one error line and returns None on a bad name or spec."""
+    ``spec``, with the settings of --factor/--cutoff/--preserve-tone for a
+    global-statistics pipeline of ``channels``-channel planar inputs; prints
+    one error line and returns None on a bad name, spec or setting."""
     from hipe_tpu_torch.models import pipelines as plib
 
     err = (_register_cli_kernels(args.kernel) or _register_cli_luts(args.lut)
@@ -336,15 +387,28 @@ def _pipeline_of(args, spec: str):
         print(err, file=sys.stderr)
         return None
     try:
-        return plib.get(tuple(spec.split(",")) if "," in spec else spec)
+        pipeline = plib.get(tuple(spec.split(",")) if "," in spec else spec)
     except (KeyError, ValueError) as e:
         msg = e.args[0] if e.args else str(e)
         print(f"Error: {msg} (a pipeline, a stage name, or a comma-joined "
               "chain of stages)", file=sys.stderr)
         return None
+    try:
+        return _stats_pipeline(args, spec, channels) or pipeline
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return None
+
+
+def _describe(pipeline) -> str:
+    """``name (stages ...)`` and a global-statistics pipeline's settings."""
+    params = getattr(pipeline, "params", "")
+    return (f"{pipeline.name} (stages {', '.join(pipeline.filters)})"
+            + (f", {params}" if params else ""))
 
 
 def _main_stream(args) -> int:
+    import numpy as np
     import torch
 
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
@@ -353,6 +417,21 @@ def _main_stream(args) -> int:
     pipeline = _pipeline_of(args, args.pipeline_name)
     if pipeline is None:
         return 1
+    if args.image is None:
+        source, image = IMAGE_NAME, checker_image(256, 256, 3, seed=0)
+    else:
+        from hipe_tpu_torch.io_.jpeg import decode_file
+
+        source = args.image
+        try:
+            image = decode_file(args.image)
+        except (OSError, ValueError) as e:
+            print(f"Error: cannot load input image: {e}", file=sys.stderr)
+            return 1
+        except RuntimeError as e:  # the host codec's build (no g++ or libjpeg)
+            print(f"Error: {str(e).splitlines()[0]}", file=sys.stderr)
+            return 1
+        image = np.ascontiguousarray(image if image.ndim == 3 else image[..., None])
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise SystemExit(
@@ -360,11 +439,10 @@ def _main_stream(args) -> int:
             f"{args.device} with torch.cuda.is_available() = "
             f"{torch.cuda.is_available()}")
     card = gpu_name_and_power_limit()
-    image = checker_image(256, 256, 3, seed=0)
     h, w, c = image.shape
     print("========== DEVICE-STREAM CONFIGURATION ==========")
-    print(f"Pipeline: {args.pipeline_name} (stages {', '.join(pipeline.filters)})")
-    print(f"Stream: {args.num_images} images of {w}x{h}x{c} ({IMAGE_NAME})")
+    print(f"Pipeline: {_describe(pipeline)}")
+    print(f"Stream: {args.num_images} images of {w}x{h}x{c} ({source})")
     print(f"Card: {card}")
     runner = DeviceStreamRunner(pipeline, num_images=args.num_images,
                                 image=image, device=device)
@@ -389,8 +467,9 @@ def _main_stream(args) -> int:
         print(json.dumps({
             "pipeline": args.pipeline_name,
             "filters": list(pipeline.filters),
+            "params": getattr(pipeline, "params", ""),
             "num_images": args.num_images,
-            "image": IMAGE_NAME,
+            "image": source,
             "img_per_s": res["img_per_s"],
             "per_pass_ms": res["per_pass_s"] * 1e3,
             "gb_per_s": res["gb_per_s"],
@@ -411,7 +490,8 @@ def _main_serve(args) -> int:
     from hipe_tpu_torch.runtime.serve import ServingPipeline
     from hipe_tpu_torch.utils.images import checker_image
 
-    pipeline = _pipeline_of(args, args.pipeline_name)
+    # Under --decode-gray the pipeline runs 1-channel (hipe_tpu's channels=1).
+    pipeline = _pipeline_of(args, args.pipeline_name, 1 if args.decode_gray else 3)
     if pipeline is None:
         return 1
     device = torch.device(args.device)
@@ -436,7 +516,7 @@ def _main_serve(args) -> int:
     batch = max(1, min(args.batch_size, args.num_images))
     card = gpu_name_and_power_limit() if device.type == "cuda" else "cpu"
     print("========== SERVING CONFIGURATION ==========")
-    print(f"Pipeline: {args.pipeline_name} (stages {', '.join(pipeline.filters)})")
+    print(f"Pipeline: {_describe(pipeline)}")
     print(f"Stream: {args.num_images} JPEGs of {source}, batch {batch}, "
           f"quality {args.quality}")
     print("Decode: " + ("device (entropy on the host, IDCT K6/upsample/colour on the card)"
@@ -579,15 +659,18 @@ def _main_approach(args) -> int:
     from hipe_tpu_torch.runtime.engine import Engine, EngineConfig
     from hipe_tpu_torch.utils.images import checker_image
 
-    if args.factor is not None or args.cutoff is not None or args.preserve_tone:
-        raise ValueError(
-            "--factor, --cutoff and --preserve-tone configure the global-statistics "
-            "pipelines (contrast, color, sharpness, autocontrast), which "
-            "hipe_tpu_torch does not carry yet; ROADMAP.md lists them (item 7)")
     pipeline = _pipeline_of(args, args.pipeline)
     if pipeline is None:
         return 1
     approach = 1 if args.command == "approach1" else 2
+    if approach == 2:
+        try:
+            pipeline.radius
+        except ValueError as e:
+            # A global-statistics pipeline has no halo radius; the row split
+            # cannot run it (the error says what can).
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
     cfg = EngineConfig(
         approach=approach, mode=getattr(args, "mode", "both"),
         gpu_ratio=args.gpu_ratio, batch_size=args.batch_size,
@@ -617,7 +700,7 @@ def _main_approach(args) -> int:
     print(f"Number of images in stream: {cfg.num_images}")
     print(f"Batch size: {cfg.batch_size} images")
     print(f"Number of batches: {n_batches}")
-    print(f"Pipeline: {pipeline.name} (stages {', '.join(pipeline.filters)})")
+    print(f"Pipeline: {_describe(pipeline)}")
     if approach == 1:
         print(f"Mode: {cfg.mode}")
         print(f"GPU ratio: {cfg.gpu_ratio * 100:.1f}% GPU, "

@@ -18,18 +18,26 @@ K2's or K3's shared memory (:func:`routes_tiled`, e.g. the reference's
 and K5 (every other stage), as ``hipe_tpu`` sends oversized planes to
 ``_tiled_blur_kernel`` and ``_tiled_point_kernel``. K1 keeps its row sums
 in registers and takes planes of any width, so a single gaussian stays on
-it (at 4000x2250 it runs faster than K4; PERF.md). The global-statistics
-pipelines of ``hipe_tpu`` are listed in ROADMAP.md as still to be ported.
+it (at 4000x2250 it runs faster than K4; PERF.md).
+
+:class:`GlobalStatsPipeline` carries ``hipe_tpu``'s global-statistics
+family (equalize, autocontrast, contrast, color, sharpness, mode, mode5):
+PyTorch ops from :mod:`hipe_tpu_torch.ops.equalize`, as they are XLA ops in
+``hipe_tpu``, run in chunks of whole images at stream scale; sharpness's
+SMOOTH plane runs K3 (K5 for planes too wide for it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from hipe_tpu_torch.ops import blur as tblur
 from hipe_tpu_torch.ops import cuda_blur
+from hipe_tpu_torch.ops import equalize as eq
 from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
 from hipe_tpu_torch.ops.cuda_chain import check_stages, filter_chain_planar_cuda
 from hipe_tpu_torch.ops.cuda_tiled import RUN as LANE_RUN
@@ -173,6 +181,170 @@ class Pipeline:
         return y.view(b, y.shape[1], w, c)
 
 
+# Bytes of temporaries a pixel that each global-statistics op holds at once
+# over a chunk of planes (its int64 gather index, int32 luma and blend
+# terms, float32 products; mode's int16 padded plane and keys and its uint8
+# counts, 9 or 25 of them), rounded up.
+STATS_TEMP_BYTES = {"equalize": 12, "autocontrast": 20, "contrast": 20, "color": 36,
+                    "sharpness": 40, "mode": 28, "mode5": 48}
+# The temporaries a chunk may hold: at the 5000-image stream's 983 MB an
+# unchunked equalize would take 7.9 GB of int64 index alone, mode5 some 47 GB.
+STATS_CHUNK_BYTES = 2 ** 31
+
+
+def global_stats_chunk(h: int, w: int, channels: int, name: str) -> int:
+    """Planes a chunk of a stream-scale global-statistics apply: the most
+    whole images (a multiple of ``channels``, as planar layout is
+    image-major) whose temporaries fit :data:`STATS_CHUNK_BYTES`, at least
+    one image. Every statistic is an image's, so chunks give the same bytes
+    as one call (``hipe_tpu``'s ``_global_stats_chunk``, which sizes its
+    chunks for a TPU's HBM)."""
+    per_image = channels * h * w * STATS_TEMP_BYTES[name]
+    return channels * max(1, STATS_CHUNK_BYTES // per_image)
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalStatsPipeline:
+    """A per-image global-statistics pipeline (no stencil radius).
+
+    ``name`` selects the op of :mod:`hipe_tpu_torch.ops.equalize`:
+
+    - ``equalize``: PIL ``ImageOps.equalize``, a histogram and LUT a plane;
+    - ``autocontrast``: PIL ``ImageOps.autocontrast``; ``cutoff`` (integer
+      percent or (low, high) percents) trims the histogram first, and
+      ``preserve_tone`` takes one Pillow-luma range an image;
+    - ``contrast``: PIL ``ImageEnhance.Contrast`` (one luma mean an image);
+    - ``color``: PIL ``ImageEnhance.Color`` (a blend a pixel with its luma);
+    - ``sharpness``: PIL ``ImageEnhance.Sharpness`` (a blend with the SMOOTH
+      plane, which K3 computes on the card, and PIL's border copy);
+    - ``mode`` / ``mode5``: PIL ``ImageFilter.ModeFilter(3 | 5)``.
+
+    ``factor`` is contrast/color/sharpness's strength (1.0, the registry's,
+    is the identity). ``channels`` is the channel count of *planar* inputs,
+    which :meth:`apply_planar` groups as ``b*channels + c``; rows and
+    channels-last inputs carry their own. The apply methods take and ignore
+    the fused kernels' launch knobs (``rows_per_block``, ``tile``), so the
+    runtime's call sites work unchanged, and write into ``out=`` when it is
+    given. On CUDA tensors every op runs on the card.
+    """
+
+    name: str
+    filters: tuple = ()
+    cutoff: object = 0
+    preserve_tone: bool = False
+    factor: float = 1.0
+    channels: int = 3
+
+    def __post_init__(self):
+        if self.name not in STATS_TEMP_BYTES:
+            raise KeyError(f"unknown global-statistics op {self.name!r} "
+                           f"(choose from {sorted(STATS_TEMP_BYTES)})")
+        if not self.filters:
+            object.__setattr__(self, "filters", (self.name,))
+        if self.cutoff != 0 and self.name != "autocontrast":
+            raise ValueError(f"cutoff applies to 'autocontrast' only, not {self.name!r}")
+        if self.preserve_tone and self.name != "autocontrast":
+            raise ValueError(f"preserve_tone applies to 'autocontrast' only, not {self.name!r}")
+        if self.factor != 1.0 and self.name not in ("contrast", "color", "sharpness"):
+            raise ValueError(f"factor applies to 'contrast'/'color'/'sharpness' only, "
+                             f"not {self.name!r}")
+        if self.name == "autocontrast":
+            eq._normalize_cutoff(self.cutoff)  # fail at construction
+        if self.name in ("contrast", "color", "sharpness") and not (
+                isinstance(self.factor, (int, float)) and self.factor >= 0):
+            raise ValueError(f"{self.name} factor must be a number >= 0, got {self.factor!r}")
+
+    @property
+    def radius(self) -> int:
+        raise ValueError(
+            f"pipeline {self.name!r} uses whole-image or cross-channel statistics and has "
+            "no stencil radius: halo-based row-split (approach2) cannot run it. Use an "
+            "image-level mode (approach1/stream/serve); row-split runs these ops only "
+            "once ROADMAP.md item 9 (sharding) is ported.")
+
+    @property
+    def params(self) -> str:
+        """The op's settings as text (empty at the registry's defaults)."""
+        if self.name == "autocontrast":
+            tone = ", preserve_tone" if self.preserve_tone else ""
+            return f"cutoff {self.cutoff}{tone}" if self.cutoff or tone else ""
+        if self.name in ("contrast", "color", "sharpness"):
+            return f"factor {float(self.factor)}"
+        return ""
+
+    def routes_tiled(self, h: int, w: int) -> bool:
+        """False: the family has no launch knob of its own (sharpness's K3
+        or K5 routes itself)."""
+        return False
+
+    def _planar_fn(self, channels: int):
+        """The planar op with this pipeline's settings, grouping ``channels``."""
+        fn = getattr(eq, f"{self.name}_planar")
+        if self.name == "autocontrast":
+            return functools.partial(fn, channels=channels, cutoff=self.cutoff,
+                                     preserve_tone=self.preserve_tone)
+        if self.name in ("contrast", "color", "sharpness"):
+            return functools.partial(fn, channels=channels, factor=float(self.factor))
+        return functools.partial(fn, channels=channels)
+
+    def _chunked(self, planes: torch.Tensor, channels: int,
+                 out: torch.Tensor | None) -> torch.Tensor:
+        """The op over (N, H, W) planes in chunks of :func:`global_stats_chunk`."""
+        fn = self._planar_fn(channels)
+        n, h, w = planes.shape
+        k = global_stats_chunk(h, w, channels, self.name)
+        if n <= k:
+            return fn(planes, out=out)
+        if out is None:
+            out = torch.empty_like(planes)
+        for i in range(0, n, k):
+            fn(planes[i:i + k], out=out[i:i + k])
+        return out
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., H, W, C) uint8, any leading axes or none."""
+        return eq._nhwc_via_rows(self.apply_rows, x)
+
+    def apply_planar(self, planes: torch.Tensor, *, h_pad: bool = True,
+                     rows_per_block: int | None = None, tile=None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+        """Planar ``(B*channels, H, W)`` uint8; ``h_pad=False`` raises."""
+        if not h_pad:
+            raise ValueError(f"pipeline {self.name!r}: halo (h_pad=False) mode is "
+                             "meaningless for a global-statistics op")
+        return self._chunked(planes, self.channels, out)
+
+    def apply_rows(self, rows: torch.Tensor, channels: int, *, h_pad: bool = True,
+                   rows_per_block: int | None = None, tile=None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+        """Interleaved rows ``(B, H, W*C)`` uint8: a relayout to planar, the
+        chunked op grouping ``channels``, a relayout back."""
+        if not h_pad:
+            raise ValueError(f"pipeline {self.name!r}: halo (h_pad=False) mode is "
+                             "meaningless for a global-statistics op")
+        res = eq._rows_via_planar(lambda planes, c: self._chunked(planes, c, None), rows,
+                                  channels)
+        return res if out is None else out.copy_(res)
+
+    def apply_nhwc(self, x: torch.Tensor, *, h_pad: bool = True,
+                   out: torch.Tensor | None = None, **kw) -> torch.Tensor:
+        """``(B, H, W, C)`` wrapper over :meth:`apply_rows` (a free reshape)."""
+        b, h, w, c = x.shape
+        rows_out = None if out is None else out.view(b, h, w * c)
+        return self.apply_rows(x.reshape(b, h, w * c), c, h_pad=h_pad, out=rows_out,
+                               **kw).view(b, h, w, c)
+
+    def oracle(self, img: np.ndarray) -> np.ndarray:
+        """The op's NumPy oracle on one (H, W, C) or (H, W) image."""
+        if self.name == "autocontrast":
+            return eq.autocontrast_oracle(img, self.cutoff, self.preserve_tone)
+        if self.name in ("contrast", "color", "sharpness"):
+            return getattr(eq, f"{self.name}_oracle")(img, float(self.factor))
+        if self.name in ("mode", "mode5"):
+            return eq.mode_oracle(img, 5 if self.name == "mode5" else 3)
+        return eq.equalize_oracle(img)
+
+
 PIPELINES = {
     "blur3": Pipeline("blur3", ("gaussian3",)),
     "blur5": Pipeline("blur5", ("gaussian5",)),
@@ -196,25 +368,28 @@ PIPELINES = {
     "invert": Pipeline("invert", ("invert",)),
     "solarize": Pipeline("solarize", ("solarize",)),
     "posterize": Pipeline("posterize", ("posterize4",)),
+    "equalize": GlobalStatsPipeline("equalize"),
+    "autocontrast": GlobalStatsPipeline("autocontrast"),
+    "contrast": GlobalStatsPipeline("contrast"),
+    "color": GlobalStatsPipeline("color"),
+    "sharpness": GlobalStatsPipeline("sharpness"),
+    # PIL ImageFilter.ModeFilter: truncated (not clamped) windows.
+    "mode": GlobalStatsPipeline("mode"),
+    "mode5": GlobalStatsPipeline("mode5"),
 }
 
-# The global-statistics pipelines of hipe_tpu, which this package does not
-# carry yet; ROADMAP.md lists their order.
-UNPORTED_PIPELINES = frozenset({
-    "equalize", "autocontrast", "contrast", "color", "sharpness", "mode", "mode5",
-})
 
 
-def get(name_or_filters) -> Pipeline:
+def get(name_or_filters) -> Pipeline | GlobalStatsPipeline:
     """A pipeline by name, a bare stage name, or a sequence of stage names.
 
-    Follows ``hipe_tpu.models.pipelines.get``: a bare stage (registered
-    ones included) is a one-stage pipeline and a sequence is named by
-    joining its stages with ``+``. A pipeline that ``hipe_tpu`` has but
-    this package does not carry yet, and an unknown name, raise
-    ``KeyError``.
+    Follows ``hipe_tpu.models.pipelines.get``: a constructed pipeline is
+    returned as it is, a bare stage (registered ones included) is a
+    one-stage pipeline and a sequence is named by joining its stages with
+    ``+``. The global-statistics names are pipelines, not chainable stages.
+    An unknown name raises ``KeyError``.
     """
-    if isinstance(name_or_filters, Pipeline):
+    if isinstance(name_or_filters, (Pipeline, GlobalStatsPipeline)):
         return name_or_filters
     if isinstance(name_or_filters, str):
         name = name_or_filters
@@ -222,15 +397,8 @@ def get(name_or_filters) -> Pipeline:
             return PIPELINES[name]
         if name in tblur.FILTERS:
             return Pipeline(name, (name,))
-        if name in UNPORTED_PIPELINES:
-            raise KeyError(
-                f"pipeline {name!r} is not ported to hipe_tpu_torch yet "
-                f"(ported: {sorted(PIPELINES)} and the stages "
-                f"{sorted(tblur.FILTERS)}); ROADMAP.md lists the order of "
-                "the rest")
         raise KeyError(
             f"unknown pipeline {name!r} (choose from {sorted(PIPELINES)} or "
-            f"the stages {sorted(tblur.FILTERS)}; ROADMAP.md lists what is "
-            "still to be ported)")
+            f"the stages {sorted(tblur.FILTERS)})")
     names = check_stages(name_or_filters)
     return Pipeline("+".join(names), names)

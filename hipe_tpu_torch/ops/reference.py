@@ -87,3 +87,30 @@ def sobel_edge_oracle(img: np.ndarray) -> np.ndarray:
     gx = (sl(0, 2) + 2 * sl(1, 2) + sl(2, 2)) - (sl(0, 0) + 2 * sl(1, 0) + sl(2, 0))
     gy = (sl(2, 0) + 2 * sl(2, 1) + sl(2, 2)) - (sl(0, 0) + 2 * sl(0, 1) + sl(0, 2))
     return np.clip(np.abs(gx) + np.abs(gy), 0, 255).astype(np.uint8)
+
+
+def kernel_oracle(img: np.ndarray, taps, scale: int, offset: float) -> np.ndarray:
+    """Exact-arithmetic PIL ``ImageFilter.Kernel`` semantics, int64.
+
+    Taps in PIL order (row 0 first; PIL applies kernel rows bottom-up, so
+    the correlation uses the row-reversed table); clamp-to-edge borders
+    (PIL copies border pixels unfiltered: equality with PIL holds on the
+    interior); round-half-up by the integer identity
+    floor(acc/scale + offset + 1/2) = (2*acc + scale*(2*offset+1)) // (2*scale).
+    The oracle of the sharpness op's SMOOTH plane.
+    """
+    size = int(round(len(taps) ** 0.5))
+    r = size // 2
+    h, w = img.shape[:2]
+    pad = ((r, r), (r, r)) + ((0, 0),) * (img.ndim - 2)
+    xp = np.pad(img, pad, mode="edge").astype(np.int64)
+    t = np.array(taps, np.int64).reshape(size, size)[::-1]
+    acc = np.zeros(img.shape, np.int64)
+    for dy in range(size):
+        for dx in range(size):
+            acc += t[dy, dx] * xp[dy:dy + h, dx:dx + w]
+    off2 = int(2 * offset)
+    if off2 != 2 * offset:
+        raise ValueError(f"offset {offset} is not a multiple of 0.5")
+    num = 2 * acc + int(scale) * (off2 + 1)
+    return np.clip(num // (2 * int(scale)), 0, 255).astype(np.uint8)

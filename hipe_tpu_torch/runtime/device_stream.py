@@ -9,6 +9,11 @@ checksums and the first image return to the host. Frames too wide for K2
 or K3 (``Pipeline.routes_tiled``, e.g. 4000x2250) run one launch a stage of
 the tiled kernels K4 and K5 instead; K1 takes frames of any width.
 
+A global-statistics pipeline (``GlobalStatsPipeline``: equalize,
+autocontrast, contrast, color, sharpness, mode) runs its PyTorch ops in
+chunks of whole images, with no launch knob to sweep; sharpness's SMOOTH
+plane runs K3.
+
 Chained passes feed every output into the next pass, alternating between
 two scratch buffers (the kernels are out-of-place: a tile's halo rows
 belong to its neighbour, so in-place writes would race). The stream itself is never
@@ -31,6 +36,7 @@ broken TPU compile service are not carried over.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -76,6 +82,7 @@ class DeviceStreamRunner:
         tune_cache_path: str | None = None,
     ):
         self.pipeline = plib.get(pipeline)
+        self.global_stats = isinstance(self.pipeline, plib.GlobalStatsPipeline)
         self.num_images = num_images
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -88,6 +95,9 @@ class DeviceStreamRunner:
         self.image = image
         h, w, c = image.shape
         self.shape = (h, w, c)
+        if self.global_stats and self.pipeline.channels != c:
+            # The planar stream groups an image's planes by its channel count.
+            self.pipeline = dataclasses.replace(self.pipeline, channels=c)
         n = num_images * c
         if stream is None:
             planes = torch.from_numpy(hwc_to_planar(image[None])).to(self.device)
@@ -103,9 +113,11 @@ class DeviceStreamRunner:
         # The two buffers chained passes alternate between.
         self._bufs = (torch.empty_like(self.stream), torch.empty_like(self.stream))
         # Whether the frames take the tiled route (K4/K5), whose knob is the
-        # tile shape; the fused kernels' is rows_per_block.
+        # tile shape; the fused kernels' is rows_per_block. A global-statistics
+        # pipeline has none.
         self.tiled = self.pipeline.routes_tiled(h, w)
-        self.config = {"tile": None} if self.tiled else {"rows_per_block": None}
+        self.config = ({} if self.global_stats else {"tile": None} if self.tiled
+                       else {"rows_per_block": None})
         self.tuning: dict | None = None
         self.tune_cache_path = tune_cache_path or default_tune_cache_path()
 
@@ -139,6 +151,8 @@ class DeviceStreamRunner:
 
     def _configs(self) -> list[tuple[str, dict, str | None]]:
         """(label, config, reason to skip or None) for each autotune candidate."""
+        if self.global_stats:
+            return [("torch_ops", {}, None)]
         if not self.tiled:
             return [(f"cuda_rpb{rpb}", {"rows_per_block": rpb}, None)
                     for rpb in self.block_candidates()]
@@ -157,8 +171,9 @@ class DeviceStreamRunner:
         h, w, c = self.shape
         card = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
                 else self.device.type)
-        knob = next(iter(self.config))
-        return (f"{card}|{self.pipeline.name}:{','.join(self.pipeline.filters)}|"
+        knob = next(iter(self.config), "none")
+        stages = (self.pipeline.params if self.global_stats else ','.join(self.pipeline.filters))
+        return (f"{card}|{self.pipeline.name}:{stages}|"
                 f"{h}x{w}x{c}|n{self.num_images}|{knob}")
 
     def _read_cache(self) -> dict:
@@ -205,7 +220,8 @@ class DeviceStreamRunner:
         """Time each launch config of the pipeline's kernels; keep the fastest.
 
         The configs are ``rows_per_block`` values for K1/K2/K3 and tile
-        shapes for K4/K5 on the tiled route. Returns {label:
+        shapes for K4/K5 on the tiled route; a global-statistics pipeline has
+        one, ``torch_ops``, so the sweep only times it. Returns {label:
         per_pass_seconds}. A config that exceeds shared memory, or whose
         launch fails, is recorded in ``self.tuning["skipped"]`` with the
         reason; the sweep raises if none ran. The plain version is never a
@@ -264,12 +280,15 @@ class DeviceStreamRunner:
     def verify_max_abs_err(self) -> int:
         """Max-abs pixel error of the first image of one pass.
 
-        As in ``hipe_tpu``: against the NumPy oracle for a single gaussian,
-        and against the pipeline's own plain path for every other chain.
+        Against the NumPy oracle for a single gaussian and for a
+        global-statistics op (its PIL semantics), and against the
+        pipeline's own plain path for every other chain.
         """
         c = self.shape[2]
         got = self._one_pass(self.stream, self._bufs[0])[:c].cpu().numpy()
-        if self.pipeline.single_gaussian:
+        if self.global_stats:
+            want_img = self.pipeline.oracle(self.image)
+        elif self.pipeline.single_gaussian:
             want_img = gaussian_blur_int_oracle(self.image, self.pipeline.radius)
         else:
             want_img = self.pipeline(torch.from_numpy(self.image)).numpy()

@@ -20,7 +20,10 @@ the hand-written kernels:
 
 The CUDA lane always runs the kernels through ``Pipeline.apply_rows``: K1's
 rows entry for a single gaussian, a relayout onto K2/K3 (K4/K5 for planes
-too wide for them) for every other chain. The CPU lane is a device the user
+too wide for them) for every other chain. A global-statistics pipeline
+(``GlobalStatsPipeline``) runs its PyTorch ops on each lane's device, K3
+for sharpness's SMOOTH plane on the card; approach 2 refuses it (it has
+no halo radius). The CPU lane is a device the user
 asks for (mode 'both' or 'cpu'), never a fallback: mode 'both' or 'gpu'
 with no CUDA card raises, unless the caller passes the devices.
 
@@ -529,6 +532,8 @@ class Engine:
                           else torch.device(dev).type.upper())
         text = render_report(self.stats, accel_name=accel_name)
         if "cpu" in self._lanes:
-            text += (f"\n   CPU lane: plain PyTorch rows chain, "
-                     f"{torch.get_num_threads()} intra-op threads")
+            what = ("PyTorch global-statistics ops"
+                    if isinstance(self.pipeline, plib.GlobalStatsPipeline)
+                    else "plain PyTorch rows chain")
+            text += f"\n   CPU lane: {what}, {torch.get_num_threads()} intra-op threads"
         return text

@@ -20,7 +20,8 @@ a geometry the device decoder does not take, and every 4-component
 (CMYK/YCCK) stream, falls back to the host decode, which refuses 4-channel
 serving. ``run`` overlaps the host stage of batch k+1 with the device work
 of batch k. The filter is ``Pipeline.apply_rows``: for blur3, K1's rows
-entry.
+entry; for a ``GlobalStatsPipeline``, its PyTorch ops on the batch's device
+(``decode_gray`` runs them 1-channel).
 
 ``hipe_tpu``'s serving options apply in every placement, in its order:
 scaled decode (``decode_scale``: libjpeg's DCT-domain 1/2, 1/4, 1/8; and

@@ -175,7 +175,7 @@ def test_cli_chains_without_cuda_raise(argv):
 @pytest.mark.parametrize("argv,msg", [
     (["stream", "nope"], "unknown pipeline"),
     (["stream", "gaussian3,equalize"], "unknown filter stage"),
-    (["stream", "mode"], "not ported"),
+    (["stream", "mode", "--factor", "2"], "--factor applies"),
     (["stream", "x,edge", "--lut", "x=brightness:-1"], "bad --lut"),
     (["stream", "edge", "--lut", "torchport_cli_bad=1,2,3"], "256 entries"),
     (["stream", "edge", "--rank", "torchport_cli_r=5:25"], "bad --rank"),

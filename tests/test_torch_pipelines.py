@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from hipe_tpu.models import pipelines as jplib
 from hipe_tpu_torch.models import pipelines as tplib
+from hipe_tpu_torch.ops import blur as tblur
 
 NAMES = ["blur3", "blur5", "blur7", "blur9", "sharpen", "edge", "chain",
          "median", "denoise", "erode", "dilate", "open", "close", "median5",
@@ -40,17 +41,32 @@ def test_call_nhwc_matches_jax_pipeline(name):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+STATS_NAMES = ["equalize", "autocontrast", "contrast", "color", "sharpness", "mode", "mode5"]
+
+
 def test_registry_and_radius():
-    assert set(tplib.PIPELINES) == set(NAMES)
+    assert set(tplib.PIPELINES) == set(NAMES) | set(STATS_NAMES)
     for name in NAMES:
         assert tplib.get(name).radius == jplib.get(name).radius
         assert tplib.get(name).filters == jplib.get(name).filters
+    for name in STATS_NAMES:
+        with pytest.raises(ValueError, match="no stencil radius"):
+            tplib.get(name).radius
 
 
-@pytest.mark.parametrize("name", ["mode", "mode5", "autocontrast", "equalize", "nope"])
-def test_unported_pipelines_raise(name):
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        tplib.get(name)
+@pytest.mark.parametrize("name", STATS_NAMES)
+def test_stats_pipelines_equal_hipe_tpus(name):
+    got, want = tplib.get(name), jplib.get(name)
+    assert isinstance(got, tplib.GlobalStatsPipeline)
+    assert isinstance(want, jplib.GlobalStatsPipeline)
+    fields = ("name", "filters", "cutoff", "preserve_tone", "factor", "channels")
+    assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
+    assert tplib.get(got) is got
+
+
+def test_unported_pipelines_raise():
+    with pytest.raises(KeyError, match="unknown pipeline 'nope'"):
+        tplib.get("nope")
 
 
 @pytest.mark.parametrize("spec", ["gaussian5", ("gaussian3",), "edge", "posterize7",
@@ -65,20 +81,24 @@ def test_get_takes_bare_stages_and_stage_sequences(spec):
         np.asarray(want.apply_planar(jnp.asarray(x), use_pallas=True, interpret=True)))
 
 
-@pytest.mark.parametrize("spec", ["mode", ("gaussian3", "equalize"), ("nope",)])
+@pytest.mark.parametrize("spec", [pytest.param(("mode",), id="mode"),
+                                  ("gaussian3", "equalize"), ("nope",)])
 def test_get_rejects_unported_and_unknown_stages(spec):
-    with pytest.raises(KeyError, match="ROADMAP.md"):
+    # The global-statistics names are pipelines, not chainable stages.
+    with pytest.raises(KeyError, match="unknown filter stage"):
         tplib.get(spec)
 
 
-def test_unported_names_are_hipe_tpu_pipelines_or_stages():
+def test_every_hipe_tpu_pipeline_resolves_in_the_port():
     from hipe_tpu.ops import blur as jblur
 
-    assert tplib.UNPORTED_PIPELINES <= set(jplib.PIPELINES) - set(tplib.PIPELINES)
-    # Every pipeline of hipe_tpu is ported or named as still to port, and
-    # what is still to port is the global-statistics family, no stage.
-    for name in jplib.PIPELINES:
-        assert (name in tplib.PIPELINES) != (name in tplib.UNPORTED_PIPELINES), name
-    for name in tplib.UNPORTED_PIPELINES:
+    assert not hasattr(tplib, "UNPORTED_PIPELINES")
+    assert set(tplib.PIPELINES) == set(jplib.PIPELINES)
+    for name, want in jplib.PIPELINES.items():
+        got = tplib.get(name)
+        assert type(got).__name__ == type(want).__name__, name
+        assert got.filters == want.filters, name
+    # The global-statistics family is pipelines of their own, never stages.
+    for name in STATS_NAMES:
         assert isinstance(jplib.PIPELINES[name], jplib.GlobalStatsPipeline), name
-        assert name not in jblur.FILTERS, name
+        assert name not in jblur.FILTERS and name not in tblur.FILTERS, name

@@ -37,7 +37,9 @@ BUILTIN_STAGES = sorted(n for n in jblur.ROWS_FILTERS if not n.startswith("torch
 REGISTERED = [LUT_NAME, RANK_NAME, KERNEL_NAME]
 BAND_CHAINS = [("gaussian3", "sharpen", "edge"), ("edge",), ("gaussian5", "solarize"),
                ("posterize4", "gaussian9", "edge"), (LUT_NAME, "sharpen")]
-PIPELINES = sorted(tplib.PIPELINES)
+# The stencil pipelines; the global-statistics family has its own tests
+# (tests/test_torch_global_stats.py).
+PIPELINES = sorted(n for n, p in tplib.PIPELINES.items() if isinstance(p, tplib.Pipeline))
 
 
 def _rows(b, h, w, c, seed):

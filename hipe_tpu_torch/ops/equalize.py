@@ -38,7 +38,9 @@ LUT is applied with ``torch.gather``. ``hipe_tpu``'s comparison-sum LUT apply
 (``use_cmp``) is a TPU formulation and is not carried over. The planar ops
 take ``out=``. They materialize int64 indices and int32/int16 temporaries
 the size of their input, so callers at stream scale chunk them
-(``GlobalStatsPipeline`` does).
+(``GlobalStatsPipeline`` does). ``equalize_planar``'s three stages are the
+spans ``stats.histogram``, ``stats.lut`` and ``stats.apply``
+(``profiling/trace.py``), one of each a call.
 
 ``colorize_lut`` builds PIL ``ImageOps.colorize``'s three wedge tables with
 Pillow's own integer arithmetic; the serving pipeline applies them as the
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from hipe_tpu_torch.ops.reference import kernel_oracle
+from hipe_tpu_torch.profiling.trace import span
 
 _HEX = re.compile(r"#(?:[0-9a-f]{3}|[0-9a-f]{6})")
 
@@ -254,8 +257,13 @@ def equalize_planar(planes: torch.Tensor, channels: int = 3, *,
     """(N, H, W) uint8 -> (N, H, W) uint8, each plane equalized alone
     (``channels`` is taken for the family's signature)."""
     n, h, w = planes.shape
-    idx = planes.reshape(n, -1).long()  # shared by the histogram and the gather
-    return _apply_lut(equalize_lut(_histogram(idx), h * w), idx, planes.shape, out)
+    with span("stats.histogram", planes.device):
+        idx = planes.reshape(n, -1).long()  # shared by the histogram and the gather
+        hist = _histogram(idx)
+    with span("stats.lut", planes.device):
+        lut = equalize_lut(hist, h * w)
+    with span("stats.apply", planes.device):
+        return _apply_lut(lut, idx, planes.shape, out)
 
 
 def equalize_rows(rows: torch.Tensor, channels: int) -> torch.Tensor:

@@ -17,7 +17,9 @@ plane runs K3.
 Chained passes feed every output into the next pass, alternating between
 two scratch buffers (the kernels are out-of-place: a tile's halo rows
 belong to its neighbour, so in-place writes would race). The stream itself is never
-overwritten, so every measurement starts from the same input.
+overwritten, so every measurement starts from the same input. Each pass is
+a host-only ``stream.pass`` span (``profiling/trace.py``), recorded only
+while a profiler records.
 
 Throughput is timed with CUDA events around ``passes`` chained passes after
 a warm-up; the stream (983 MB at 5000 x 256x256x3) is 20x the H100's 50 MB
@@ -47,6 +49,7 @@ import torch
 from hipe_tpu_torch.models import pipelines as plib
 from hipe_tpu_torch.ops import _build, cuda_tiled
 from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
+from hipe_tpu_torch.profiling.trace import span
 from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
 
 # The launch knob of K1, K2 and K3 swept by autotune: output rows per block,
@@ -128,7 +131,8 @@ class DeviceStreamRunner:
         """``r`` chained passes from the stream; returns the last output."""
         x = self.stream
         for i in range(r):
-            x = self._one_pass(x, self._bufs[i % 2])
+            with span("stream.pass"):
+                x = self._one_pass(x, self._bufs[i % 2])
         return x
 
     def chained(self, r: int) -> int:

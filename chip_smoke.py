@@ -155,24 +155,29 @@ driven only where phase 1 finds it (phase 20).
     Then the phase's seconds.
 
 21. The global-statistics family (``GlobalStatsPipeline``; PyTorch ops, as
-    they are XLA ops in ``hipe_tpu``): ``DeviceStreamRunner`` over the
+    they are XLA ops in ``hipe_tpu``, but for equalize's three hand-written
+    kernels K8-K10): ``DeviceStreamRunner`` over the
     5000-image stream for equalize, autocontrast (plain, ``cutoff=2``,
     ``preserve_tone``), contrast 1.5, color 2.2, sharpness 2.0, mode and
     mode5: ms a pass (CUDA events; fewer passes for the mode filters), its
     bound (the bytes a pass must move; the pairwise form's int32
     operations for the mode filters), peak device memory, the device's idle
-    share over a pass, the first image against the NumPy oracle and the
+    share over as many passes, the first image against the NumPy oracle and the
     first 16 of a kept pass against the same op on CPU tensors; sharpness's
-    K3 launches (one a chunk of a pass; no other op launches a kernel) and
-    a pass with K3 swapped for its plain version. 64 varied 256x256 images
+    K3 launches (one a chunk of a pass) and a pass with K3 swapped for its
+    plain version; equalize's K8, K9 and K10 launches (one each a pass, the
+    stream one chunk), and each kernel alone over the stream: ms a launch,
+    its bound by bytes, its plain version's ms on the card and its output
+    against the plain version's; no other op launches a kernel. 64 varied 256x256 images
     (the kinds of ``tests/test_equalize.py``, quantized levels, the float64
     quirk) against the NumPy oracles on each path (for mode and mode5, whose
     oracle is slow, a plane of one image of each kind, and all 64 against
     the CPU). The engine: approach 1
-    ``gpu`` at batch 500 with equalize over phase 19's stream, batch 0
-    against the oracle. Serving: ``decode_filter_fn`` and ``transcode_fn``
-    with equalize, autocontrast ``cutoff=2`` and contrast 1.5 over phase
-    18's coefficient stream, as phase 20 drives its paths (K6, K7). Every
+    ``gpu`` at batch 500 with equalize over phase 19's stream (K8-K10 a
+    CUDA-lane batch), batch 0 against the oracle. Serving:
+    ``decode_filter_fn`` and ``transcode_fn`` with equalize, autocontrast
+    ``cutoff=2`` and contrast 1.5 over phase 18's coefficient stream, as
+    phase 20 drives its paths (K6, K7; K8-K10 for equalize). Every
     max_abs_err must be 0. Then the phase's seconds.
 
 Then one JSON line of per-kernel results (each kernel's launches on its
@@ -511,6 +516,8 @@ def reset_counts() -> dict:
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
     from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda, filter_chain_rows_cuda
     from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, fdct_quantize_cuda
+    from hipe_tpu_torch.ops.cuda_equalize import (apply_lut_planar_cuda, equalize_lut_cuda,
+                                                  histogram_planes_cuda)
     from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
     from hipe_tpu_torch.ops.cuda_tiled import (filter_stage_planar_tiled_cuda,
                                                gaussian_blur_planar_tiled_cuda)
@@ -519,7 +526,8 @@ def reset_counts() -> dict:
                 "K2": filter_chain_planar_cuda, "K2 rows": filter_chain_rows_cuda,
                 "K3": rank_chain_planar_cuda, "K4": gaussian_blur_planar_tiled_cuda,
                 "K5": filter_stage_planar_tiled_cuda, "K6": dequant_idct_cuda,
-                "K7": fdct_quantize_cuda}
+                "K7": fdct_quantize_cuda, "K8": histogram_planes_cuda,
+                "K9": equalize_lut_cuda, "K10": apply_lut_planar_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -1550,9 +1558,10 @@ CPU_IMAGES = 16  # images of each path held against the CPU path
 
 @contextlib.contextmanager
 def plain_kernels():
-    """While the block runs, K6, K7 and K1's rows entry are their plain
-    versions on the card (in chunks) wherever the port calls them: the same
-    path with each kernel replaced, the yardstick of phase 20."""
+    """While the block runs, K6, K7, K1's rows entry and equalize's K8-K10
+    are their plain versions on the card (in chunks) wherever the port
+    calls them: the same path with each kernel replaced, the yardstick of
+    phases 20 and 21."""
     from hipe_tpu_torch.models import pipelines as plib
     from hipe_tpu_torch.ops import jpeg_decode as jd
     from hipe_tpu_torch.ops import jpeg_encode as je
@@ -1571,9 +1580,49 @@ def plain_kernels():
     jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda = (
         idct, fdct, rows_blur)
     try:
-        yield
+        with plain_equalize():
+            yield
     finally:
         jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda = saved
+
+
+# Planes a call of equalize's plain stages on the card: the int64 index of
+# 1000 planes of 256x256 is 524 MB.
+PLAIN_EQUALIZE_PLANES = 1000
+
+
+def plain_equalize_stages() -> dict:
+    """K8, K9 and K10's plain versions on the card, in chunks of planes
+    (each stage's torch ops, as ``ops/equalize.py`` runs them on the CPU)."""
+    from hipe_tpu_torch.ops import equalize as eq
+
+    def each(fn, out, *parts):
+        res = torch.cat([fn(*chunk) for chunk in zip(*[p.split(PLAIN_EQUALIZE_PLANES)
+                                                      for p in parts])])
+        return res if out is None else out.copy_(res)
+
+    return {
+        "K8": lambda planes, out=None: each(eq.histogram_planes, out, planes),
+        "K9": lambda hist, npix, out=None: eq.equalize_lut(hist, npix) if out is None
+        else out.copy_(eq.equalize_lut(hist, npix)),
+        "K10": lambda planes, lut, out=None: each(eq.apply_lut, out, planes, lut),
+    }
+
+
+@contextlib.contextmanager
+def plain_equalize():
+    """While the block runs, K8, K9 and K10 are their plain versions on the
+    card wherever equalize calls them."""
+    from hipe_tpu_torch.ops import cuda_equalize as ce
+
+    plain = plain_equalize_stages()
+    saved = ce.histogram_planes_cuda, ce.equalize_lut_cuda, ce.apply_lut_planar_cuda
+    ce.histogram_planes_cuda, ce.equalize_lut_cuda, ce.apply_lut_planar_cuda = (
+        plain["K8"], plain["K9"], plain["K10"])
+    try:
+        yield
+    finally:
+        ce.histogram_planes_cuda, ce.equalize_lut_cuda, ce.apply_lut_planar_cuda = saved
 
 
 def outputs_err(got, want) -> int:
@@ -1837,6 +1886,66 @@ def oracle_err(pipe, batch: np.ndarray, got: torch.Tensor) -> int:
     return max_abs_err(got, torch.from_numpy(hwc_to_planar(want)).to(got.device))
 
 
+EQUALIZE_KERNELS = ("K8", "K9", "K10")
+# The benchmark's resident stream (its configuration and image generator).
+BENCH_STREAM_CONFIG = "torch_bench/configs/resident_5000x320x240_rgb.json"
+BENCH_STREAM_GEN = "torch_bench/gen/photo_like.py"
+
+
+def bench_stream_planes(seed: int) -> torch.Tensor:
+    """The benchmark's planar (15000, 240, 320) uint8 stream of ``seed`` on
+    the card, made by its own photo-like generator."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, BENCH_STREAM_CONFIG)) as f:
+        cfg = json.load(f)
+    spec = importlib.util.spec_from_file_location("photo_like",
+                                                  os.path.join(root, BENCH_STREAM_GEN))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    shape = (cfg["num_images"], cfg["height"], cfg["width"], cfg["channels"])
+    return gen.planar(0, shape[0], shape, seed, cfg["images"], torch.device("cuda"))
+
+
+def equalize_kernels(card: str, planes: torch.Tensor) -> dict:
+    """Equalize's K8, K9 and K10 each alone over the stream ``planes``: ms
+    a launch (CUDA events, the mean of PASSES after a warm-up), its bound
+    (the bytes it must move over the card's 3.35 TB/s), its plain version's
+    ms on the card (in chunks) and its output against the plain version's;
+    and a copy of ``planes`` (``copy_``), K10's nearest library yardstick."""
+    from hipe_tpu_torch.ops import cuda_equalize as ce
+
+    n, h, w = planes.shape
+    plain = plain_equalize_stages()
+    hist = ce.histogram_planes_cuda(planes)
+    lut = ce.equalize_lut_cuda(hist, h * w)
+    out = torch.empty_like(planes)
+    calls = {  # kernel, plain version, bytes: the planes, 1 KB of counts, 256 B of table
+        "K8": (lambda: ce.histogram_planes_cuda(planes, out=hist),
+               lambda: plain["K8"](planes), n * h * w + n * 1024),
+        "K9": (lambda: ce.equalize_lut_cuda(hist, h * w, out=lut),
+               lambda: plain["K9"](hist, h * w), n * 1024 + n * 256),
+        "K10": (lambda: ce.apply_lut_planar_cuda(planes, lut, out=out),
+                lambda: plain["K10"](planes, lut), 2 * n * h * w + n * 256),
+    }
+    res = {}
+    for k, (fn, plain_fn, nbytes) in calls.items():
+        ms = cuda_ms(fn, reps=PASSES)
+        plain_ms = cuda_ms(plain_fn)
+        err = max_abs_err(fn(), plain_fn())
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if err:
+            raise AssertionError(f"{k}: max-abs {err} against its plain version")
+        print(f"[21 global stats] equalize {k} alone over {n}x{h}x{w}: {ms:.4f} ms a launch; "
+              f"bound {bound_ms:.4f} ms (bytes); plain {plain_ms:.4f} ms; max_abs_err {err} "
+              f"against the plain version [{card}]", flush=True)
+        res[k] = {"ms": ms, "bound_ms": bound_ms, "bound_by": "bytes", "plain_ms": plain_ms,
+                  "err": err}
+    res["K10"]["copy_ms"] = cuda_ms(lambda: out.copy_(planes), reps=PASSES)
+    print(f"[21 global stats] copy_ over {n}x{h}x{w}: {res['K10']['copy_ms']:.4f} ms [{card}]",
+          flush=True)
+    return res
+
+
 def phase_global_stats(card: str) -> dict:
     """Phase 21: the global-statistics family over the 5000-image stream,
     a varied batch against the NumPy oracles, the engine and three serving
@@ -1851,6 +1960,7 @@ def phase_global_stats(card: str) -> dict:
 
     t_phase = time.perf_counter()
     dev, cpu = torch.device("cuda"), torch.device("cpu")
+    kernels, equalize_launches, equalize_runs = {}, {}, 0
     batch = np.stack([stats_image(STATS_KINDS[i % len(STATS_KINDS)], seed=i)
                       for i in range(STATS_BATCH)])
     batch_planes = torch.from_numpy(hwc_to_planar(batch)).to(dev)
@@ -1872,20 +1982,31 @@ def phase_global_stats(card: str) -> dict:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         runs = 1 + 4 * passes + 1  # verify, warm-up and 3 timings, the kept pass
-        chunks = -(-runner.stream.shape[0] // global_stats_chunk(SIDE, SIDE, CHANNELS, name))
-        expect = {"K3": chunks * runs} if name == "sharpness" else {}
+        chunks = -(-runner.stream.shape[0] // global_stats_chunk(SIDE, SIDE, CHANNELS, name,
+                                                                  dev))
+        own = {"sharpness": ("K3",), "equalize": EQUALIZE_KERNELS}.get(name, ())
+        expect = {k: chunks * runs for k in own}
         counts = check_counts(wrappers, expect, label)
-        if name == "sharpness" and counts["K3"] != chunks * runs:
-            raise AssertionError(f"sharpness: K3 launched {counts['K3']} times, expected "
-                                 f"{chunks} chunks x {runs} passes")
+        if any(counts[k] != n for k, n in expect.items()):
+            raise AssertionError(f"{label}: launches {counts}, expected {chunks} chunks x "
+                                 f"{runs} passes of each of {own}")
         k3_launches += counts["K3"]
+        if name == "equalize":
+            equalize_launches, equalize_runs = {k: counts[k] for k in EQUALIZE_KERNELS}, runs
+            kernels = equalize_kernels(card, runner.stream)
+            bench = bench_stream_planes(seed=21)
+            for k, v in equalize_kernels(card, bench).items():
+                kernels[k]["bench_stream"] = {"shape": list(bench.shape), **v}
+            del bench
         head = CPU_IMAGES * CHANNELS
         cpu_err = max_abs_err(kept[:head].cpu(), pipe.apply_planar(runner.stream[:head].cpu()))
         plain_err = None
         if name == "sharpness":
             with plain_k3():
                 plain_err = max_abs_err(kept, runner.run_passes(1))
-        busy = device_busy(lambda: runner.run_passes(1))
+        # As many passes as a timing: one equalize pass (~1 ms) is too short
+        # a window for torch.profiler to record its kernels reliably.
+        busy = device_busy(lambda: runner.run_passes(passes))
         del kept, runner
         torch.cuda.empty_cache()
         varied = pipe.apply_planar(batch_planes)
@@ -1915,7 +2036,7 @@ def phase_global_stats(card: str) -> dict:
         print(f"[21 global stats] {label}: {ms:.4f} ms a pass ({passes} passes, median of 3), "
               f"{NUM_IMAGES * 1e3 / ms:.1f} img/s; bound {bound_ms:.4f} ms ({bound_by}); "
               f"{chunks} chunks; peak memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB "
-              f"resident); device idle over a pass {1 - busy[1] / busy[0]:.2%}; launches "
+              f"resident); device idle over {passes} passes {1 - busy[1] / busy[0]:.2%}; launches "
               f"{launched or 'none'} over {runs} passes; max_abs_err {err} (first image "
               f"against the oracle), {cpu_err} (first {CPU_IMAGES} against the CPU), "
               f"{batch_err} ({STATS_BATCH} varied images against the "
@@ -1935,7 +2056,9 @@ def phase_global_stats(card: str) -> dict:
     eng = Engine(EngineConfig(approach=1, mode="gpu", batch_size=500, num_images=NUM_IMAGES,
                               pipeline="equalize"))
     stats = eng.run(stream=SeededStream(distinct, NUM_IMAGES, 500))
-    counts = check_counts(wrappers, {}, "engine equalize")
+    # At least one launch of each a CUDA-lane batch.
+    counts = check_counts(wrappers, {k: NUM_IMAGES // 500 for k in EQUALIZE_KERNELS},
+                          "engine equalize")
     pipe = GlobalStatsPipeline("equalize")
     engine_err = oracle_err(pipe, distinct, torch.from_numpy(
         hwc_to_planar(eng.first_output)).to(dev))
@@ -1943,10 +2066,12 @@ def phase_global_stats(card: str) -> dict:
         raise AssertionError(f"engine equalize: batch 0 != the oracle: max-abs {engine_err}")
     print(f"[21 engine] A1 gpu b500 equalize, {NUM_IMAGES} images of {A_W}x{A_H}x{CHANNELS}: "
           f"wall {stats.wall_ms:.2f} ms, {stats.images_per_sec:.1f} img/s; "
-          f"{lane_text('gpu', stats.accel)}; launches none ({counts}); max_abs_err "
+          f"{lane_text('gpu', stats.accel)}; launches "
+          f"{ {k: n for k, n in counts.items() if n} }; max_abs_err "
           f"{engine_err} over batch 0 ({A_DISTINCT} images) against the oracle; "
           f"{time.perf_counter() - t_path:.1f} s [{card}]", flush=True)
-    engine = {"wall_ms": stats.wall_ms, "img_per_s": stats.images_per_sec, "err": engine_err}
+    engine = {"wall_ms": stats.wall_ms, "img_per_s": stats.images_per_sec, "err": engine_err,
+              "counts": counts}
     del eng, distinct
 
     # Serving: decode + filter and the transcode over phase 18's stream.
@@ -1958,15 +2083,16 @@ def phase_global_stats(card: str) -> dict:
     coefs = tuple(c.expand(NUM_IMAGES, *c.shape[1:]).contiguous()
                   for c in je.encode_planes(geo, one, qt))
     serving = {}
-    totals = {"K6": 0, "K7": 0}
+    totals = {"K6": 0, "K7": 0, **{k: 0 for k in EQUALIZE_KERNELS}}
     for name, params in (("equalize", {}), ("autocontrast", {"cutoff": 2}),
                          ("contrast", {"factor": 1.5})):
         pipe = GlobalStatsPipeline(name, **params)
         label = name + "".join(f" {k}={v}" for k, v in params.items())
         sps = [ServingPipeline(pipe, device=d, decode_on_device=True, encode_on_device=True)
                for d in (dev, cpu)]
-        for what, per_pass in (("decode_filter_fn", {"K6": 3}),
-                               ("transcode_fn", {"K6": 3, "K7": 3})):
+        own = {k: 1 for k in EQUALIZE_KERNELS} if name == "equalize" else {}
+        for what, per_pass in (("decode_filter_fn", {"K6": 3, **own}),
+                               ("transcode_fn", {"K6": 3, "K7": 3, **own})):
             res = drive_serving_path(card, f"{label} {what}", getattr(sps[0], what)(geo, qkey),
                                      coefs, getattr(sps[1], what)(geo, qkey), per_pass,
                                      phase="21 global stats")
@@ -1980,7 +2106,16 @@ def phase_global_stats(card: str) -> dict:
     secs = time.perf_counter() - t_phase
     print(f"[21 global stats] launches over the phase's paths: K3 {k3_launches}, {totals}; "
           f"phase {secs:.1f} s [{card}]", flush=True)
-    return {"paths": paths, "engine": engine, "serving": serving,
+    for k in EQUALIZE_KERNELS:
+        kernels[k]["launches"] = (equalize_launches[k] + engine["counts"][k] + totals[k])
+        kernels[k]["stream_launches"] = equalize_launches[k]
+        # Launches a pass of the stream, as counted over its passes.
+        per_pass, rest = divmod(equalize_launches[k], equalize_runs)
+        if rest:
+            raise AssertionError(f"equalize {k}: {equalize_launches[k]} launches over "
+                                 f"{equalize_runs} stream passes is no whole number a pass")
+        kernels[k]["launches_per_pass"] = per_pass
+    return {"paths": paths, "engine": engine, "serving": serving, "kernels": kernels,
             "launches": {"K3": k3_launches, **totals}, "secs": secs}
 
 
@@ -2170,7 +2305,28 @@ def main() -> int:
         "bound_by": codec["bounds"]["K7"][1],
         "library_ms": no_library,
         "ptxas": dct_ptxas["fdct_quantize_kernel"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/equalize_planar.cu",
+        # hipe_tpu's equalize is XLA ops: no pallas_call to replace.
+        "replaces": None,
+        "stage": stage,
+        "launches": stats["kernels"][k]["launches"],
+        # Phase 21: the equalize stream's launches, and those over its passes.
+        "stream_launches": stats["kernels"][k]["stream_launches"],
+        "launches_per_pass": stats["kernels"][k]["launches_per_pass"],
+        "max_abs_err": max(stats["kernels"][k]["err"], stats["paths"]["equalize"]["err"]),
+        "ms": stats["kernels"][k]["ms"],
+        "plain_ms": stats["kernels"][k]["plain_ms"],
+        "bound_ms": stats["kernels"][k]["bound_ms"],
+        "bound_by": stats["kernels"][k]["bound_by"],
+        "library_ms": no_library,
+        # The same alone over the benchmark's 15000x240x320 stream.
+        "bench_stream": stats["kernels"][k]["bench_stream"],
+    } for k, name, stage in (("K8", "equalize_histogram_u8", "histogram"),
+                             ("K9", "equalize_lut_u8", "table"),
+                             ("K10", "equalize_apply_u8", "apply"))]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

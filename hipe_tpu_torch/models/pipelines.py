@@ -187,20 +187,30 @@ class Pipeline:
 # counts, 9 or 25 of them), rounded up.
 STATS_TEMP_BYTES = {"equalize": 12, "autocontrast": 20, "contrast": 20, "color": 36,
                     "sharpness": 40, "mode": 28, "mode5": 48}
+# Bytes of temporaries a plane, not a pixel, of the ops whose card route
+# keeps none the size of its input: equalize's kernels K8-K10 hold an int32
+# histogram and a uint8 table a plane.
+STATS_CARD_PLANE_TEMP_BYTES = {"equalize": 256 * 4 + 256}
 # The temporaries a chunk may hold: at the 5000-image stream's 983 MB an
-# unchunked equalize would take 7.9 GB of int64 index alone, mode5 some 47 GB.
+# unchunked equalize on the CPU route would take 7.9 GB of int64 index
+# alone, mode5 some 47 GB.
 STATS_CHUNK_BYTES = 2 ** 31
 
 
-def global_stats_chunk(h: int, w: int, channels: int, name: str) -> int:
-    """Planes a chunk of a stream-scale global-statistics apply: the most
-    whole images (a multiple of ``channels``, as planar layout is
-    image-major) whose temporaries fit :data:`STATS_CHUNK_BYTES`, at least
-    one image. Every statistic is an image's, so chunks give the same bytes
-    as one call (``hipe_tpu``'s ``_global_stats_chunk``, which sizes its
-    chunks for a TPU's HBM)."""
-    per_image = channels * h * w * STATS_TEMP_BYTES[name]
-    return channels * max(1, STATS_CHUNK_BYTES // per_image)
+def global_stats_chunk(h: int, w: int, channels: int, name: str,
+                       device: str | torch.device = "cpu") -> int:
+    """Planes a chunk of a stream-scale global-statistics apply on
+    ``device``: the most whole images (a multiple of ``channels``, as planar
+    layout is image-major) whose temporaries fit :data:`STATS_CHUNK_BYTES`,
+    at least one image. Every statistic is an image's, so chunks give the
+    same bytes as one call (``hipe_tpu``'s ``_global_stats_chunk``, which
+    sizes its chunks for a TPU's HBM). On a CUDA device an op of
+    :data:`STATS_CARD_PLANE_TEMP_BYTES` holds that much a plane, so a
+    stream is one chunk."""
+    per_plane = h * w * STATS_TEMP_BYTES[name]
+    if torch.device(device).type == "cuda":
+        per_plane = STATS_CARD_PLANE_TEMP_BYTES.get(name, per_plane)
+    return channels * max(1, STATS_CHUNK_BYTES // (channels * per_plane))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,7 +302,7 @@ class GlobalStatsPipeline:
         """The op over (N, H, W) planes in chunks of :func:`global_stats_chunk`."""
         fn = self._planar_fn(channels)
         n, h, w = planes.shape
-        k = global_stats_chunk(h, w, channels, self.name)
+        k = global_stats_chunk(h, w, channels, self.name, planes.device)
         if n <= k:
             return fn(planes, out=out)
         if out is None:

@@ -38,9 +38,12 @@ LUT is applied with ``torch.gather``. ``hipe_tpu``'s comparison-sum LUT apply
 (``use_cmp``) is a TPU formulation and is not carried over. The planar ops
 take ``out=``. They materialize int64 indices and int32/int16 temporaries
 the size of their input, so callers at stream scale chunk them
-(``GlobalStatsPipeline`` does). ``equalize_planar``'s three stages are the
-spans ``stats.histogram``, ``stats.lut`` and ``stats.apply``
-(``profiling/trace.py``), one of each a call.
+(``GlobalStatsPipeline`` does). Equalize on a CUDA tensor is the exception:
+its three stages are the hand-written kernels K8-K10
+(``ops/cuda_equalize.py``), with about 1.3 KB of temporaries a plane and
+no chunks. ``equalize_planar``'s three stages are the spans
+``stats.histogram``, ``stats.lut`` and ``stats.apply``
+(``profiling/trace.py``), one of each a call, on either route.
 
 ``colorize_lut`` builds PIL ``ImageOps.colorize``'s three wedge tables with
 Pillow's own integer arithmetic; the serving pipeline applies them as the
@@ -252,10 +255,30 @@ def apply_lut(planes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return _apply_lut(lut, planes.reshape(planes.shape[0], -1).long(), planes.shape, None)
 
 
+def _equalize_planar_cuda(planes: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    """Equalize on the card: kernels K8, K9 and K10, one launch each over all
+    the planes (``ops/cuda_equalize.py``), no int64 index."""
+    from hipe_tpu_torch.ops import cuda_equalize as ce
+
+    _, h, w = planes.shape
+    planes = planes.contiguous()
+    with span("stats.histogram", planes.device):
+        hist = ce.histogram_planes_cuda(planes)
+    with span("stats.lut", planes.device):
+        lut = ce.equalize_lut_cuda(hist, h * w)
+    with span("stats.apply", planes.device):
+        if out is None or out.is_contiguous():
+            return ce.apply_lut_planar_cuda(planes, lut, out=out)
+        return _store(ce.apply_lut_planar_cuda(planes, lut), out)
+
+
 def equalize_planar(planes: torch.Tensor, channels: int = 3, *,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """(N, H, W) uint8 -> (N, H, W) uint8, each plane equalized alone
-    (``channels`` is taken for the family's signature)."""
+    (``channels`` is taken for the family's signature). On the card the
+    three kernels of ``ops/cuda_equalize.py``; on the CPU the torch ops."""
+    if planes.device.type == "cuda":
+        return _equalize_planar_cuda(planes, out)
     n, h, w = planes.shape
     with span("stats.histogram", planes.device):
         idx = planes.reshape(n, -1).long()  # shared by the histogram and the gather

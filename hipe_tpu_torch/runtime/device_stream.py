@@ -156,7 +156,9 @@ class DeviceStreamRunner:
     def _configs(self) -> list[tuple[str, dict, str | None]]:
         """(label, config, reason to skip or None) for each autotune candidate."""
         if self.global_stats:
-            return [("torch_ops", {}, None)]
+            # The family has no launch knob: one config, named after its route.
+            k8_k10 = self.device.type == "cuda" and self.pipeline.name == "equalize"
+            return [("cuda_k8_k10" if k8_k10 else "torch_ops", {}, None)]
         if not self.tiled:
             return [(f"cuda_rpb{rpb}", {"rows_per_block": rpb}, None)
                     for rpb in self.block_candidates()]
@@ -225,7 +227,8 @@ class DeviceStreamRunner:
 
         The configs are ``rows_per_block`` values for K1/K2/K3 and tile
         shapes for K4/K5 on the tiled route; a global-statistics pipeline has
-        one, ``torch_ops``, so the sweep only times it. Returns {label:
+        one, named after its route (``cuda_k8_k10`` for equalize on the card,
+        else ``torch_ops``), so the sweep only times it. Returns {label:
         per_pass_seconds}. A config that exceeds shared memory, or whose
         launch fails, is recorded in ``self.tuning["skipped"]`` with the
         reason; the sweep raises if none ran. The plain version is never a

@@ -6,10 +6,11 @@ This file imports no JAX, so it also runs on a GPU machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_global_stats.py -q
 
 Every op of ``GlobalStatsPipeline`` in each layout and in chunks; sharpness
-launches K3 for its SMOOTH plane (K5 on planes too wide for K3) and no other
-op launches a kernel; the device stream, the engine's CUDA lane and the
-serving transcode with a stats pipeline (K6 and K7 around it, from
-coefficients the port's encoder makes: the card's machine has no libjpeg).
+launches K3 for its SMOOTH plane (K5 on planes too wide for K3), equalize
+K8, K9 and K10 once each a call, and no other op launches a kernel; the
+device stream, the engine's CUDA lane and the serving transcode with a
+stats pipeline (K6 and K7 around it, from coefficients the port's encoder
+makes: the card's machine has no libjpeg).
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 from hipe_tpu_torch.io_.jpeg import quality_tables
 from hipe_tpu_torch.models import pipelines as plib
-from hipe_tpu_torch.ops import cuda_dct, cuda_rank_chain, cuda_tiled
+from hipe_tpu_torch.ops import cuda_dct, cuda_equalize, cuda_rank_chain, cuda_tiled
 from hipe_tpu_torch.ops import jpeg_encode as je
 from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 from hipe_tpu_torch.runtime.engine import Engine, EngineConfig
@@ -64,12 +65,19 @@ def _launches():
             cuda_tiled.filter_stage_planar_tiled_cuda.launches)
 
 
+def _equalize_launches():
+    return (cuda_equalize.histogram_planes_cuda.launches,
+            cuda_equalize.equalize_lut_cuda.launches,
+            cuda_equalize.apply_lut_planar_cuda.launches)
+
+
 @pytest.mark.parametrize("c", [1, 3])
 @pytest.mark.parametrize("key", list(CONFIGS))
 def test_ops_on_the_card_equal_the_cpu(cuda, key, c):
     p = _pipe(key, channels=c)
     x = _images(4, 37, 53, c, seed=len(key) + c)
     k3, k5 = _launches()
+    eqs = _equalize_launches()
     got = p.apply_nhwc(x.to(cuda))
     torch.cuda.synchronize()
     assert got.device.type == "cuda"
@@ -82,6 +90,9 @@ def test_ops_on_the_card_equal_the_cpu(cuda, key, c):
     k3_now, k5_now = _launches()
     assert k3_now - k3 == (2 if p.name == "sharpness" else 0)
     assert k5_now == k5
+    # Equalize launches K8, K9 and K10 once a call (one chunk each); no other op does.
+    calls = 2 if p.name == "equalize" else 0
+    assert _equalize_launches() == tuple(k + calls for k in eqs)
 
 
 def test_sharpness_of_wide_planes_launches_k5(cuda):
@@ -101,8 +112,11 @@ def test_chunked_on_the_card_equals_one_call(cuda, monkeypatch, key):
     p = _pipe(key)
     x = _images(7, 33, 40, 3, seed=3).permute(0, 3, 1, 2).reshape(21, 33, 40).to(cuda)
     whole = p.apply_planar(x)
-    monkeypatch.setattr(plib, "STATS_CHUNK_BYTES",
-                        2 * 3 * 33 * 40 * plib.STATS_TEMP_BYTES[p.name] + 1)
+    # Two images a chunk on the card: four chunks, the last of one image.
+    per_plane = plib.STATS_CARD_PLANE_TEMP_BYTES.get(p.name,
+                                                     33 * 40 * plib.STATS_TEMP_BYTES[p.name])
+    monkeypatch.setattr(plib, "STATS_CHUNK_BYTES", 2 * 3 * per_plane + 1)
+    assert plib.global_stats_chunk(33, 40, 3, p.name, cuda) == 6
     assert torch.equal(p.apply_planar(x), whole)
 
 

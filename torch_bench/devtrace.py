@@ -29,11 +29,15 @@ def _short(name: str) -> str:
 
 def _busy(e) -> bool:
     """Whether a device event is a kernel, a copy or a memset: by its
-    activity type where the profiler gives one, else by its name (not the
-    device-side copy of a harness span, not a synchronization)."""
+    activity type where the profiler gives one, else by what it is not (the
+    device-side copy of a user annotation, whatever its name, or of a
+    harness span; a synchronization)."""
     kind = getattr(e, "activity_type", None)
     if kind is not None:
         return kind() in BUSY_TYPES
+    annotation = getattr(e, "is_user_annotation", None)
+    if annotation is not None and annotation():
+        return False
     name = e.name()
     return not name.startswith("bench.") and "synchroniz" not in name.lower()
 

@@ -11,6 +11,11 @@ the last one's output, as ``run_passes`` chains them; it is enqueued
 without a wait. What is compared is the output of the window's last step,
 all images, against the reference applied as many times to the images made
 again from the seed.
+
+The module-level declarations below are what the benchmark's self-tests
+(``tests/test_faults.py``) hold a driver to: the program's callables at
+which each fault is planted, how many entries of their leading dimension
+an image takes, and the parts ``setup`` times on the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +26,21 @@ import numpy as np
 import torch
 
 from compare import Tally
+
+# Each fault's points, as "module:Qualified.name" of hipe_tpu_torch: a pass
+# over the planar stream, whose output has its input's shape and is where
+# the step's output is produced.
+_PASS = ("hipe_tpu_torch.models.pipelines:Pipeline.apply_planar",
+         "hipe_tpu_torch.models.pipelines:GlobalStatsPipeline.apply_planar")
+FAULT_POINTS = {"unchanged": _PASS, "half": _PASS, "altered": _PASS}
+# The keys of ``window.setup_parts`` on the CPU (the card adds autotune_s).
+SETUP_PARTS = ("runner_s", "data_s", "warm_s")
+
+
+def image_entries(cell) -> int:
+    """Entries of a fault point's leading dimension that one image takes:
+    its planes."""
+    return cell.config["channels"]
 
 
 class State:

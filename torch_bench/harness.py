@@ -24,7 +24,8 @@ the window of ``--seconds``, closed by a synchronize; with ``--trace 1``
 the profiler records the window's last :data:`TRACE_SECONDS`. Then the peak
 device memory is read, the program's state is freed, and the output of the
 window's last step is compared with the reference on inputs generated again
-from the seed.
+from the seed. Last, a run with JAX or the JAX package loaded in its
+process raises and gives no result.
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ MANIFEST = "BENCHMARK.json"
 LOOKAHEAD_STEPS = 2
 # How much of a traced run's window the profiler records (its last part).
 TRACE_SECONDS = 3.0
+# Top-level modules that no run may have loaded: JAX and the JAX package,
+# which the port replaces (the port's own name only starts with the latter's).
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "hipe_tpu")
 # The drivers and references import the benchmark's own modules by name.
 if str(BENCH_DIR) not in sys.path:
     sys.path.insert(0, str(BENCH_DIR))
@@ -210,6 +214,13 @@ def measure(cell: Cell, driver, state, seconds: float, trace: bool, log) -> dict
     }
 
 
+def forbidden_modules() -> list[str]:
+    """The loaded modules whose top-level name is one of
+    :data:`FORBIDDEN_MODULES`, compared whole."""
+    return sorted(m for m in list(sys.modules)
+                  if m.split(".")[0] in FORBIDDEN_MODULES)
+
+
 def power_limit() -> str:
     """The card's name and power limit from ``nvidia-smi``, or why not."""
     try:
@@ -279,6 +290,9 @@ def run(cell: Cell, seconds: float, trace: bool, t_start: float, log=None) -> di
                                                    steps_ms[-1]],
                         **cell.notes}
     result["checks"] = checks
+    loaded = forbidden_modules()
+    if loaded:
+        raise RuntimeError(f"the run loaded {', '.join(loaded)}: no result")
     return result
 
 

@@ -1,4 +1,9 @@
-"""The cells the self-tests drive: every workload of the manifest."""
+"""The cells the self-tests drive: every workload of the manifest; and a
+copy of the benchmark with a cell added as new files and manifest entries."""
+
+import json
+import shutil
+from pathlib import Path
 
 import harness
 
@@ -7,3 +12,29 @@ NAMES = [w["name"] for w in harness.load_manifest()["workloads"]]
 
 def cell(name: str) -> "harness.Cell":
     return harness.resolve(name)
+
+
+def add_cell(root: Path, name: str, config: dict, traffic: str, traffic_params: dict,
+             files: dict = None) -> Path:
+    """Copy the benchmark, without its tests, to ``root/torch_bench``; add
+    the configuration ``config`` (named by its ``name``), the traffic file
+    ``traffic`` and ``files`` (path under the copy: file to copy there);
+    write ``root/BENCHMARK.json`` as the manifest with the configuration and
+    a one-chip workload ``name`` appended. No file of the copy is edited.
+    Returns the copy's folder."""
+    bench = Path(root) / "torch_bench"
+    shutil.copytree(harness.BENCH_DIR, bench,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    for rel, src in (files or {}).items():
+        shutil.copy(src, bench / rel)
+    cfg = config["name"]
+    (bench / "configs" / f"{cfg}.json").write_text(json.dumps(config))
+    (bench / "traffic" / f"{traffic}.json").write_text(json.dumps(traffic_params))
+    m = harness.load_manifest()
+    m["configs"].append({"name": cfg, "source": "https://example.org/" + cfg,
+                         "file": f"torch_bench/configs/{cfg}.json",
+                         "reduced": [], "why": "a test"})
+    m["workloads"].append({"name": name, "config": cfg, "traffic": traffic,
+                           "chips": 1, "why": "a test"})
+    (Path(root) / "BENCHMARK.json").write_text(json.dumps(m))
+    return bench

@@ -4,13 +4,14 @@ resolved to its file."""
 import ast
 import json
 import re
-import shutil
 import time
 
 import pytest
 import torch
 
+import faults
 import harness
+from cells import add_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -73,6 +74,28 @@ def test_names_units_and_lines():
     assert all(len(v) == 1 for v in layers.values())
 
 
+def _traffic_drivers() -> dict:
+    """Each driver a traffic file names, with the manifest's cells on it."""
+    drivers = {harness.read_json(p)["driver"]: []
+               for p in sorted((harness.BENCH_DIR / "traffic").glob("*.json"))}
+    for name in CELLS:
+        drivers[harness.resolve(name).traffic["driver"]].append(name)
+    return drivers
+
+
+DRIVERS = _traffic_drivers()
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_driver_declares_its_fault_points_and_setup_parts(driver):
+    """What ``test_faults.py`` holds the driver's cells to: each fault's
+    points, resolved on the CPU to callables of the program; an image's
+    entries of their leading dimension; the set-up parts."""
+    faults.check_declarations(
+        harness.load_module(harness.BENCH_DIR / "drivers" / f"{driver}.py"),
+        [harness.resolve(name) for name in DRIVERS[driver]])
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_resolves_every_file(name):
     cell = harness.resolve(name)
@@ -128,21 +151,10 @@ def test_no_forbidden_imports():
 def test_new_cell_is_new_files_only(tmp_path):
     """A cell on a new configuration and a new traffic file, added as files
     and manifest entries alone, resolves and runs."""
-    shutil.copytree(harness.BENCH_DIR, tmp_path / "torch_bench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    m = json.loads(json.dumps(MANIFEST))
-    bench = tmp_path / "torch_bench"
-    cfg = json.loads((bench / "configs" / "resident_5000x320x240_rgb.json").read_text())
-    cfg.update(name="resident_12x40x24_gray", num_images=12, height=40, width=24, channels=1)
-    (bench / "configs" / "resident_12x40x24_gray.json").write_text(json.dumps(cfg))
-    (bench / "traffic" / "stream_chain_x2.json").write_text(json.dumps(
-        {"driver": "stream", "pipeline": "chain", "passes_per_step": 2}))
-    m["configs"].append({"name": "resident_12x40x24_gray", "source": "https://example.org/a",
-                         "file": "torch_bench/configs/resident_12x40x24_gray.json",
-                         "reduced": [], "why": "a test"})
-    m["workloads"].append({"name": "new_cell", "config": "resident_12x40x24_gray",
-                           "traffic": "stream_chain_x2", "chips": 1, "why": "a test"})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
+    cfg = dict(harness.resolve("stream_blur3").config, name="resident_12x40x24_gray",
+               num_images=12, height=40, width=24, channels=1)
+    bench = add_cell(tmp_path, "new_cell", cfg, "stream_chain_x2",
+                     {"driver": "stream", "pipeline": "chain", "passes_per_step": 2})
     cell = harness.resolve("new_cell", tmp_path, bench)
     assert cell.shape == (12, 40, 24, 1) and cell.traffic["passes_per_step"] == 2
     cell.seed, cell.device = 5, torch.device("cpu")

@@ -35,6 +35,8 @@ _PASS = ("hipe_tpu_torch.models.pipelines:Pipeline.apply_planar",
 FAULT_POINTS = {"unchanged": _PASS, "half": _PASS, "altered": _PASS}
 # The keys of ``window.setup_parts`` on the CPU (the card adds autotune_s).
 SETUP_PARTS = ("runner_s", "data_s", "warm_s")
+# The program span the step path records once a pass: run_passes's own.
+PASS_SPAN = "stream.pass"
 
 
 def image_entries(cell) -> int:

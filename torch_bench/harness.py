@@ -10,8 +10,9 @@ gives it:
 - ``traffic/<traffic>.json``: the driver, the pipeline and the traffic's
   parameters (passes a call);
 - ``drivers/<driver>.py``: set-up, one step of the window, the output the
-  comparison reads, and optionally ``counters(state)``: the program's
-  counters, read before and after the window;
+  comparison reads, ``PASS_SPAN`` (the program span its step path records
+  once a pass, or ``None``), and optionally ``counters(state)``: the
+  program's counters, read before and after the window;
 - ``work/<pipeline>.py``: a pass's bytes and operations from its shapes;
 - ``reference/<pipeline>.py``: the plain PyTorch reference of the pipeline;
 - ``metrics/<metric>.py``: one reader a metric, end-to-end or per-layer.
@@ -241,7 +242,7 @@ def run(cell: Cell, seconds: float, trace: bool, t_start: float, log=None) -> di
     cuda = cell.device.type == "cuda"
     driver = cell.driver()
     state = driver.setup(cell, log)
-    readings = {"setup_s": time.perf_counter() - t_start}
+    readings = {"setup_s": time.perf_counter() - t_start, "pass_span": driver.PASS_SPAN}
     readings.update(measure(cell, driver, state, seconds, trace, log))
     try:
         readings["bound_s_per_pass"] = cell.bound_s_per_pass()

@@ -21,6 +21,8 @@ from compare import Tally
 _ROWS = ("hipe_tpu_torch.models.pipelines:Pipeline.apply_rows",)
 FAULT_POINTS = {"unchanged": _ROWS, "half": _ROWS, "altered": _ROWS}
 SETUP_PARTS = ("pipeline_s", "data_s", "warm_s")
+# The program records no span on the rows path.
+PASS_SPAN = None
 
 
 def image_entries(cell) -> int:

@@ -96,6 +96,18 @@ def test_driver_declares_its_fault_points_and_setup_parts(driver):
         [harness.resolve(name) for name in DRIVERS[driver]])
 
 
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_driver_declares_its_pass_span(driver):
+    """What ``test_span_metrics.py`` holds the driver's cells to: the program
+    span its step path records once a pass, or ``None``; a cell that lists a
+    ``program_span`` metric has a driver that names one."""
+    span = harness.load_module(harness.BENCH_DIR / "drivers" / f"{driver}.py").PASS_SPAN
+    assert span is None or (isinstance(span, str) and span), span
+    for name in DRIVERS[driver]:
+        sources = {m["source"] for m in harness.resolve(name).metrics("per_layer")}
+        assert "program_span" not in sources or isinstance(span, str), name
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_resolves_every_file(name):
     cell = harness.resolve(name)

@@ -9,6 +9,7 @@ turns, on one NVIDIA GPU.
     python3 chain_ab.py --blur build/other
     python3 chain_ab.py --dct build/other
     python3 chain_ab.py --engine build/other
+    python3 chain_ab.py --k2 build/other
 
 Runs four processes one after another, each on one tree: OTHER, THIS,
 THIS, OTHER. Each builds its tree's kernels (into that tree's ``build/``).
@@ -48,10 +49,15 @@ instructions a sample, which is that times the threads a launch runs
 kernel loops. With ``--engine`` each runs its tree's ``chip_smoke.py``
 phase 19 (the heterogeneous engine's runs over the 5000-image 320x240
 stream: approach 1 and 2, the calibrations, the fleet, and the 115 MB
-transfers). Prints one JSON line a run and writes them to
+transfers). With ``--k2`` each runs its tree's ``chip_smoke.py`` phases 7
+and 8 and times K2's chain and K3's denoise at every ``rows_per_block``
+the autotune sweeps and at the whole plane, over a random 5000-image
+256x256 RGB planar stream and over the benchmark's 15000 planes of
+240x320. Prints one JSON line a run and writes them to
 ``build/chain_ab/chain_ab.jsonl`` (``chain_ab_stages.jsonl``,
 ``chain_ab_tiled.jsonl``, ``chain_ab_blur.jsonl``, ``chain_ab_dct.jsonl``,
-``chain_ab_engine.jsonl``); exits non-zero if a run fails.
+``chain_ab_engine.jsonl``, ``chain_ab_k2.jsonl``); exits non-zero if a
+run fails.
 """
 
 from __future__ import annotations
@@ -244,6 +250,36 @@ def blur(cs, card: str) -> dict:
     return res
 
 
+def k2_rows(cs) -> dict:
+    """ms a pass of K2's chain and K3's denoise at every rows_per_block the
+    autotune sweeps, over the 256x256 stream and the benchmark's 240x320
+    planes, with the fastest of each."""
+    import torch
+
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for side, shape in (("256x256", (cs.NUM_IMAGES * cs.CHANNELS, cs.SIDE, cs.SIDE)),
+                        ("240x320", (15000, 240, 320))):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+        out = torch.empty_like(x)
+        for label, fn, names in (("K2 chain", filter_chain_planar_cuda,
+                                  ("gaussian3", "sharpen", "edge")),
+                                 ("K3 denoise", rank_chain_planar_cuda, ("median", "gaussian3"))):
+            times = {rpb: cs.cuda_ms(lambda: fn(x, names, rows_per_block=rpb, out=out),
+                                     reps=cs.PASSES)
+                     for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, shape[1]})}
+            best = min(times, key=times.get)
+            res[f"{label} {side}"] = {"ms": times[best], "rows_per_block": best,
+                                      "all": {k: round(v, 4) for k, v in times.items()}}
+        del x, out
+        torch.cuda.empty_cache()
+    return res
+
+
 DCT_KERNELS = {"K6": "dequant_idct_kernel", "K7": "fdct_quantize_kernel"}
 
 
@@ -362,8 +398,8 @@ def dct(cs, card: str) -> dict:
 def one(root: str, mode: str) -> dict:
     """One tree's run, in this process: ``root``'s own package and script;
     ``mode`` is "sweep" (the main paths and CHAINS), "paths", "stages",
-    "tiled-sweep" (phase 14 and the K5 stages), "tiled", "blur", "dct" or
-    "engine"."""
+    "tiled-sweep" (phase 14 and the K5 stages), "tiled", "blur", "dct",
+    "engine" or "k2" (the main paths and K2's and K3's rows a block)."""
     root = os.path.abspath(root)
     sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
     os.chdir(root)
@@ -394,6 +430,8 @@ def one(root: str, mode: str) -> dict:
         return res
     for phase, name in (("7", "chain"), ("8", "denoise")):
         res[name] = cs.phase_main_path(card, phase, name)["ms"]
+    if mode == "k2":
+        res.update(k2_rows(cs))
     if mode == "sweep":
         tblur.register_lut_filter("dim", tblur.brightness_lut(0.7))
         tblur.register_rank_filter("q", 5, 6)
@@ -422,7 +460,7 @@ def main() -> int:
         return 0
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    known = {"--stages", "--tiled", "--blur", "--dct", "--engine"}
+    known = {"--stages", "--tiled", "--blur", "--dct", "--engine", "--k2"}
     if len(args) != 1 or len(flags) > 1 or not set(flags) <= known:
         raise SystemExit(__doc__)
     other = os.path.abspath(args[0])
@@ -438,6 +476,7 @@ def main() -> int:
         "--blur": (("blur",) * 4, "chain_ab_blur.jsonl"),
         "--dct": (("dct",) * 4, "chain_ab_dct.jsonl"),
         "--engine": (("engine",) * 4, "chain_ab_engine.jsonl"),
+        "--k2": (("k2",) * 4, "chain_ab_k2.jsonl"),
     }.get(flag, (("sweep", "sweep", "paths", "paths"), "chain_ab.jsonl"))
     for root, mode in zip((other, HERE, HERE, other), modes):
         t0 = time.perf_counter()

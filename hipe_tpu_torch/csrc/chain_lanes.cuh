@@ -1,5 +1,6 @@
 // The register-window skeleton that K2's planar entry (chain_planar.cu) and
-// K3 (rank_chain_planar.cu) share, and the stages in their run form.
+// K3 (rank_chain_planar.cu) share, and the stages in their run and walking
+// forms (K4 and K5, tiled_lanes.cuh, run the same forms over 2-D tiles).
 //
 // A block owns (plane, tile of rows_per_block output rows). Its two stage
 // buffers in shared memory hold padded rows: column 0 of a row sits kLead
@@ -12,8 +13,8 @@
 // does). Clamps cost a few stores a row a stage, not two instructions a tap.
 //
 // Threads are laid out as (row, run of kRun = 8 bytes), once a launch: no
-// division a byte. A thread keeps its run for a whole stage and walks its
-// rows; what the run is to the plane's edge is worked out once. It loads
+// division a byte. A thread keeps its run for a whole stage and goes down
+// its rows; what the run is to the plane's edge is worked out once. It loads
 // each input row it needs as aligned words (columns x - 4 .. x + 11 around
 // its run x .. x + 7: a 32-bit, a 64-bit and a 32-bit load), takes the
 // bytes out in registers, computes its eight outputs from values they share
@@ -22,6 +23,21 @@
 // sharpen, edge and the 3x3 median, the stages of the chain and denoise
 // streams, go two pixels a 32-bit word in 16-bit lanes: half the adds, and
 // one DPX instruction for the minimum or maximum of three pairs.
+//
+// gaussian3, sharpen, edge and the median walk (Walks, walk): a thread row
+// takes a band of consecutive rows of the stage, the bands split evenly,
+// and each thread walks down its band with the column pairs of the rows
+// above, at and below in registers, in rotation, so each input row is
+// loaded (3 loads, 6 shared-memory wavefronts a warp) and unpacked (10 byte
+// permutes) once: per run of 8 outputs, 3 loads and 10 permutes where a run
+// at a time took 9 and 30 (gaussian3, edge, the median) or 5 and 18
+// (sharpen, which reads only its own columns above and below), plus two
+// rows to start each band. Every other stage steps down its rows by the
+// thread rows, a run at a time. The three rows' 24 pair registers live
+// through a whole band: K2's kernel takes 64 registers (four blocks an SM)
+// where the run forms took 63, and is bound to them (__launch_bounds__):
+// left free, ptxas took 80, three blocks an SM, and the walk gained 3%,
+// not 15% (PERF.md §6).
 // The stages compute what chain_stages.cuh's and rank_stages.cuh's
 // functors compute, to the bit; the wide rank and kernel stages of K3 are
 // those functors, reading the padded buffer through Win.
@@ -256,6 +272,160 @@ struct GlobalSink {
   }
 };
 
+// --- gaussian3, sharpen, edge and the 3x3 median in 16-bit lanes, from
+// the column pairs of the rows above (t), at (m) and below (b) the output
+// row. Output pair k (columns o, o + 2; o = 0, 1, 4, 5) reads pairs j, j +
+// 1, j + 2 with j = k + (k & 2); pair j + 1 holds its own columns. A thread
+// walks down a band of rows with them (walk, below), so each input row is
+// loaded and unpacked once.
+
+// The column pairs of row y around the run at x.
+__device__ __forceinline__ void load_pairs(const Win& s, int y, int x, uint32_t c[8]) {
+  uint32_t wd[kWords + 2];
+  s.load(y, x, wd);
+  col_pairs(wd, c);
+}
+
+// gaussian 1: column sums t + 2m + b (<= 1020), row sums (<= 4080), >> 4 of
+// the word: a lane's low byte takes no bit of the other lane.
+struct Gaussian3Pairs {
+  __device__ __forceinline__ Run operator()(const uint32_t t[8], const uint32_t m[8],
+                                            const uint32_t b[8]) const {
+    uint32_t v[8], o[4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = t[j] + 2 * m[j] + b[j];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = k + (k & 2);
+      o[k] = (v[j] + 2 * v[j + 1] + v[j + 2]) >> 4;
+    }
+    return pack_pairs(o);
+  }
+};
+
+// Sobel: per column the sum t + 2m + b (<= 1020), shared by three outputs;
+// |gx| = |sum right - sum left| and |gy| = |B - T|, B and T the binomial
+// row sums of the rows below and above, each an absolute difference of
+// non-negative lanes.
+struct EdgePairs {
+  __device__ __forceinline__ Run operator()(const uint32_t t[8], const uint32_t m[8],
+                                            const uint32_t b[8]) const {
+    uint32_t cs[8], o[4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cs[j] = t[j] + 2 * m[j] + b[j];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = k + (k & 2);
+      const uint32_t gx = pabsdiff(cs[j + 2], cs[j]);
+      const uint32_t gy = pabsdiff(b[j] + 2 * b[j + 1] + b[j + 2], t[j] + 2 * t[j + 1] + t[j + 2]);
+      o[k] = pmin3(gx + gy, 255u * 0x10001u, 255u * 0x10001u);  // gx + gy <= 2040
+    }
+    return pack_pairs(o);
+  }
+};
+
+// sharpen of one output pair, clip(5c - u - d - l - r, 0, 255): 5c + 1020
+// - u - d - l - r lies in [0, 2295], so the lanes stay apart; clamped to
+// [1020, 1275] and unbiased.
+__device__ __forceinline__ uint32_t sharpen_pair(uint32_t l, uint32_t c, uint32_t r, uint32_t u,
+                                                 uint32_t d) {
+  constexpr uint32_t kBias = 1020u * 0x10001u;
+  const uint32_t v = 5 * c + kBias - u - d - l - r;
+  return pmin3(pmax3(v, kBias, kBias), kBias + 255u * 0x10001u, kBias + 255u * 0x10001u) - kBias;
+}
+
+// sharpen: u and d the own columns of the rows above and below (pairs j + 1).
+struct SharpenPairs {
+  __device__ __forceinline__ Run operator()(const uint32_t t[8], const uint32_t m[8],
+                                            const uint32_t b[8]) const {
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = k + (k & 2);
+      o[k] = sharpen_pair(m[j], m[j + 1], m[j + 2], t[j + 1], b[j + 1]);
+    }
+    return pack_pairs(o);
+  }
+};
+
+// The 3x3 median: each column pair sorted once (lo, mid, hi; mid = a + b +
+// c - lo - hi), then med3(max of the los, med3 of the mids, min of the his)
+// over three column pairs, Paeth's identity with columns for rows. Output
+// pairs 0 and 1 read column pairs 0-3, 2 and 3 read 4-7: taken a half at a
+// time, the sorts hold 12 registers, not 24, beside the walk's three rows
+// (K3's 3x3 kernel then fits 64 registers, four blocks an SM, unspilled).
+struct Median3Pairs {
+  __device__ __forceinline__ Run operator()(const uint32_t t[8], const uint32_t m[8],
+                                            const uint32_t b[8]) const {
+    uint32_t o[4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t lo[4], mi[4], hi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * half + i;
+        lo[i] = pmin3(t[j], m[j], b[j]);
+        hi[i] = pmax3(t[j], m[j], b[j]);
+        mi[i] = t[j] + m[j] + b[j] - lo[i] - hi[i];
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        o[2 * half + k] = pmid3(pmax3(lo[k], lo[k + 1], lo[k + 2]),
+                                pmid3(mi[k], mi[k + 1], mi[k + 2]),
+                                pmin3(hi[k], hi[k + 1], hi[k + 2]));
+      }
+    }
+    return pack_pairs(o);
+  }
+};
+
+// A stage that walks: the pair forms above. Every other stage is computed a
+// run at a time from the buffer (the run forms below). K5 runs sharpen a run
+// at a time too: walking cost it 5% there (tiled_stage_planar.cu).
+template <class S>
+struct Walks {
+  static constexpr bool value = false;
+};
+template <>
+struct Walks<Gaussian3Pairs> {
+  static constexpr bool value = true;
+};
+template <>
+struct Walks<EdgePairs> {
+  static constexpr bool value = true;
+};
+template <>
+struct Walks<SharpenPairs> {
+  static constexpr bool value = true;
+};
+template <>
+struct Walks<Median3Pairs> {
+  static constexpr bool value = true;
+};
+
+// Rows [ya, yb) of the run at x, the three rows' column pairs kept in
+// registers: each step loads and unpacks one row, and the three arrays
+// take turns as the row above, at and below, so no register moves.
+template <class Stage, class Sink>
+__device__ __forceinline__ void walk(const Stage& f, const Win& s, const Sink& dst,
+                                     const RunEdge& e, int x, int ya, int yb) {
+  if (ya >= yb) return;
+  uint32_t p0[8], p1[8], p2[8];
+  load_pairs(s, ya - 1, x, p0);
+  load_pairs(s, ya, x, p1);
+  for (int y = ya;; y += 3) {
+    load_pairs(s, y + 1, x, p2);
+    dst.put(y, x, e, f(p0, p1, p2));
+    if (y + 1 >= yb) break;
+    load_pairs(s, y + 2, x, p0);
+    dst.put(y + 1, x, e, f(p1, p2, p0));
+    if (y + 2 >= yb) break;
+    load_pairs(s, y + 3, x, p1);
+    dst.put(y + 2, x, e, f(p2, p0, p1));
+    if (y + 3 >= yb) break;
+  }
+}
+
 // A 2-D thread map over (rows, units of a row): `cols` threads a row,
 // `rows` rows at a time; threads past cols * rows stay idle.
 struct Map {
@@ -351,14 +521,24 @@ struct Tile {
   // The shared memory after both buffers.
   __device__ __forceinline__ uint8_t* tail() const { return buf0 - kLead + 2 * buf_bytes; }
 
-  // One stage over rows [r0, r1): each thread's runs, each down its rows.
+  // One stage over rows [r0, r1): each thread's runs, each down its rows. A
+  // stage that walks takes a band of consecutive rows a thread row, the
+  // bands split evenly; any other steps by the thread rows.
   template <class Stage, class Sink>
   __device__ __forceinline__ void run(const Stage& stage, const Win& src, const Sink& dst,
                                       int r0, int r1) const {
     if (!runs.active) return;
-    for (int x = runs.tx * kRun; x < w; x += runs.cols * kRun) {
-      const RunEdge e(x, w);
-      for (int y = r0 + runs.ty; y < r1; y += runs.rows) dst.put(y, x, e, stage(src, y, x));
+    if constexpr (Walks<Stage>::value) {
+      const int ya = r0 + (r1 - r0) * runs.ty / runs.rows;
+      const int yb = r0 + (r1 - r0) * (runs.ty + 1) / runs.rows;
+      for (int x = runs.tx * kRun; x < w; x += runs.cols * kRun) {
+        walk(stage, src, dst, RunEdge(x, w), x, ya, yb);
+      }
+    } else {
+      for (int x = runs.tx * kRun; x < w; x += runs.cols * kRun) {
+        const RunEdge e(x, w);
+        for (int y = r0 + runs.ty; y < r1; y += runs.rows) dst.put(y, x, e, stage(src, y, x));
+      }
     }
   }
 
@@ -383,10 +563,12 @@ struct Tile {
 
 // --- Stages, a run of kRun outputs at a time -------------------------------
 
-// gaussian r: a column sum per column, then a row sum, >> 4r (the sums are
-// at most 255 * 2^(4r), exact in int32).
+// gaussian r (r = 2..4; gaussian3 is Gaussian3Pairs): a column sum per
+// column, then a row sum, >> 4r (the sums are at most 255 * 2^(4r), exact
+// in int32).
 template <int R>
 struct Gaussian {
+  static_assert(R >= 2 && R <= 4, "gaussian3 goes in 16-bit lanes: Gaussian3Pairs");
   __device__ __forceinline__ Run operator()(const Win& s, int y, int x) const {
     constexpr int kCols = kRun + 2 * R;
     int v[kCols];
@@ -411,36 +593,10 @@ struct Gaussian {
   }
 };
 
-// gaussian 1 in pairs: column sums t + 2m + b (<= 1020), row sums (<=
-// 4080), >> 4 of the word: a lane's low byte takes no bit of the other lane.
-template <>
-struct Gaussian<1> {
-  __device__ __forceinline__ Run operator()(const Win& s, int y, int x) const {
-    uint32_t wd[kWords + 2], t[8], m[8], b[8], v[8];
-    s.load(y - 1, x, wd);
-    col_pairs(wd, t);
-    s.load(y, x, wd);
-    col_pairs(wd, m);
-    s.load(y + 1, x, wd);
-    col_pairs(wd, b);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = t[j] + 2 * m[j] + b[j];
-    uint32_t o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = k + (k & 2);
-      o[k] = (v[j] + 2 * v[j + 1] + v[j + 2]) >> 4;
-    }
-    return pack_pairs(o);
-  }
-};
-
-// clip(5c - u - d - l - r, 0, 255), in pairs: 5c + 1020 - u - d - l - r
-// lies in [0, 2295], so the lanes stay apart; clamped to [1020, 1275] and
-// unbiased.
+// sharpen in pairs, a run at a time (K5's form, tiled_lanes.cuh): the
+// rows above and below load only the run's own columns.
 struct Sharpen {
   __device__ __forceinline__ Run operator()(const Win& s, int y, int x) const {
-    constexpr uint32_t kBias = 1020u * 0x10001u;
     uint32_t wd[kWords + 2], m[8], u[4], d[4];
     s.load(y, x, wd);
     col_pairs(wd, m);
@@ -450,67 +606,7 @@ struct Sharpen {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int j = k + (k & 2);
-      const uint32_t v = 5 * m[j + 1] + kBias - u[k] - d[k] - m[j] - m[j + 2];
-      o[k] = pmin3(pmax3(v, kBias, kBias), kBias + 255u * 0x10001u, kBias + 255u * 0x10001u) -
-             kBias;
-    }
-    return pack_pairs(o);
-  }
-};
-
-// Sobel in pairs: per column the sum t + 2m + b (<= 1020), shared by
-// three outputs; |gx| = |sum right - sum left| and |gy| = |B - T|, B and T
-// the binomial row sums of the rows below and above, each an absolute
-// difference of non-negative lanes.
-struct Edge {
-  __device__ __forceinline__ Run operator()(const Win& s, int y, int x) const {
-    uint32_t wd[kWords + 2], t[8], m[8], b[8];
-    s.load(y - 1, x, wd);
-    col_pairs(wd, t);
-    s.load(y, x, wd);
-    col_pairs(wd, m);
-    s.load(y + 1, x, wd);
-    col_pairs(wd, b);
-    uint32_t cs[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[j] = t[j] + 2 * m[j] + b[j];
-    uint32_t o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = k + (k & 2);
-      const uint32_t gx = pabsdiff(cs[j + 2], cs[j]);
-      const uint32_t gy = pabsdiff(b[j] + 2 * b[j + 1] + b[j + 2], t[j] + 2 * t[j + 1] + t[j + 2]);
-      o[k] = pmin3(gx + gy, 255u * 0x10001u, 255u * 0x10001u);  // gx + gy <= 2040
-    }
-    return pack_pairs(o);
-  }
-};
-
-// The 3x3 median in pairs: each column pair sorted once (lo, mid, hi; mid =
-// a + b + c - lo - hi), then med3(max of the los, med3 of the mids, min of
-// the his) over three column pairs, Paeth's identity with columns for rows.
-struct Median3 {
-  __device__ __forceinline__ Run operator()(const Win& s, int y, int x) const {
-    uint32_t wd[kWords + 2], t[8], m[8], b[8];
-    s.load(y - 1, x, wd);
-    col_pairs(wd, t);
-    s.load(y, x, wd);
-    col_pairs(wd, m);
-    s.load(y + 1, x, wd);
-    col_pairs(wd, b);
-    uint32_t lo[8], mi[8], hi[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      lo[j] = pmin3(t[j], m[j], b[j]);
-      hi[j] = pmax3(t[j], m[j], b[j]);
-      mi[j] = t[j] + m[j] + b[j] - lo[j] - hi[j];
-    }
-    uint32_t o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = k + (k & 2);
-      o[k] = pmid3(pmax3(lo[j], lo[j + 1], lo[j + 2]), pmid3(mi[j], mi[j + 1], mi[j + 2]),
-                   pmin3(hi[j], hi[j + 1], hi[j + 2]));
+      o[k] = sharpen_pair(m[j], m[j + 1], m[j + 2], u[k], d[k]);
     }
     return pack_pairs(o);
   }

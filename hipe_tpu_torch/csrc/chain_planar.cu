@@ -31,9 +31,11 @@
 // stream reads 983 MB and writes 983 MB, ~0.59 ms at the data sheet's
 // 3.35 TB/s. The first design (one byte a thread, a clamp on every tap, a
 // division a byte, a 2-D gaussian) spent some 200 instructions a pixel on
-// it: 9.18 ms a pass. This one spends some 40 (staging, three stages of
-// ~10-16 each, the stores) and takes 2.12 ms (NVIDIA H100 80GB HBM3,
-// 700 W), 3.6x the bytes bound; by the count, issue is most of that.
+// it: 9.18 ms a pass. The run-at-a-time design spent some 40 (staging,
+// three stages of ~10-16 each, the stores): 2.12 ms (2.53 ms over 15000
+// planes of 240x320). With the three stages walking bands of rows, some
+// 33: 1.77 ms (2.14 ms at 240x320; NVIDIA H100 80GB HBM3, 700 W), 3.0x the
+// bytes bound; by the count, issue is still most of that.
 //
 // What the design does about it: one read and one write a pass. A block
 // owns (plane, tile of rows_per_block output rows); it stages the input
@@ -48,8 +50,9 @@
 // 2-D thread map of 8-byte runs, so no division a byte; each stage's eight
 // outputs from shared per-column values in registers (the gaussian
 // separable, Sobel from column sums and differences, and gaussian3,
-// sharpen and edge two pixels a 32-bit word in 16-bit lanes); LUTs staged
-// in shared memory. The rows entry keeps the first design (chain_stages.cuh's
+// sharpen and edge two pixels a 32-bit word in 16-bit lanes, each walking
+// a band of rows so that every shared-memory row is loaded and unpacked
+// once a thread, not three times); LUTs staged in shared memory. The rows entry keeps the first design (chain_stages.cuh's
 // functors, any pixel stride). The program travels by value as a kernel
 // parameter: the host checks it and sizes shared memory from it, and no
 // copy precedes a launch. Output goes to a separate buffer: a tile's halo
@@ -140,7 +143,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // The planar entry: chain_lanes.cuh's tile, the same program. Both
 // buffers hold padded plane rows [g0 - R, g1 + R); the LUTs follow them.
-__global__ void __launch_bounds__(kThreads)
+// Four blocks an SM: 64 registers a thread, what the walking stages need.
+__global__ void __launch_bounds__(kThreads, 4)
     chain_lanes_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                        const uint8_t* __restrict__ luts, int n_luts, int h, int w, int ho,
                        int out_off, int total_r, int rows_per_block, int tiles, int vec_in,
@@ -164,14 +168,14 @@ __global__ void __launch_bounds__(kThreads)
     switch (prog.op[k]) {
       case kGaussian:
         switch (arg) {
-          case 1: HIPE_STAGE(lanes::Gaussian<1>{}); break;
+          case 1: HIPE_STAGE(lanes::Gaussian3Pairs{}); break;
           case 2: HIPE_STAGE(lanes::Gaussian<2>{}); break;
           case 3: HIPE_STAGE(lanes::Gaussian<3>{}); break;
           default: HIPE_STAGE(lanes::Gaussian<4>{}); break;
         }
         break;
-      case kSharpen: HIPE_STAGE(lanes::Sharpen{}); break;
-      case kEdge: HIPE_STAGE(lanes::Edge{}); break;
+      case kSharpen: HIPE_STAGE(lanes::SharpenPairs{}); break;
+      case kEdge: HIPE_STAGE(lanes::EdgePairs{}); break;
       case kInvert: HIPE_STAGE(lanes::Invert{}); break;
       case kSolarize: HIPE_STAGE(lanes::Solarize{}); break;
       case kPosterize: HIPE_STAGE(lanes::Posterize{arg}); break;

@@ -12,8 +12,9 @@
 //
 // Stages (one program entry each, any order, up to kMaxStages): every stage
 // of K2 (gaussian 1..4, sharpen, edge, invert, solarize, posterize, LUT; the
-// same run forms, chain_lanes.cuh), and these (chain_lanes.cuh's run forms
-// and rank_stages.cuh's functors, shared with K5, tiled_stage_planar.cu):
+// same run and walking forms, chain_lanes.cuh), and these (chain_lanes.cuh's
+// forms and rank_stages.cuh's functors, shared with K5,
+// tiled_stage_planar.cu):
 //   median                 median of the 3x3 window (Paeth's min/max network)
 //   erode, dilate          min, max of the 3x3 window
 //   rank (size, rank)      rank-th smallest of the size x size window,
@@ -33,8 +34,8 @@
 // card's 64 int32 lanes a cycle on each of 132 SMs. The 3x3 stages of the
 // denoise stream cost, in the first design (one byte a thread, a clamp on
 // every tap, a division a byte), some 150 instructions a pixel: 7.79 ms;
-// in this one some 35, and 1.89 ms (NVIDIA H100 80GB HBM3, 700 W), 3.2x
-// the stream's bytes bound.
+// in the run-at-a-time one some 35, and 1.87 ms; walking bands of rows,
+// 1.45 ms (NVIDIA H100 80GB HBM3, 700 W), 2.5x the stream's bytes bound.
 //
 // What the design does about it: it runs chain_lanes.cuh's skeleton, which
 // K2's planar entry shares (one block per (plane, tile of rows_per_block
@@ -44,8 +45,9 @@
 // write a pass), and
 // - computes the 3x3 median, erode and dilate eight outputs at a time from
 //   per-column sorts and extrema in registers, with Hopper's three-input
-//   min/max (DPX; the median two pixels a word in 16-bit lanes), and every
-//   K2 stage as K2 does;
+//   min/max (DPX; the median two pixels a word in 16-bit lanes, walking a
+//   band of rows as K2's gaussian3 and edge do, so each row is loaded and
+//   unpacked once), and every K2 stage as K2 does;
 // - selects a rank stage's value by bit-serial counting (the rank-th
 //   smallest is >= c iff |{v < c}| <= rank; 8 rounds fix the 8 bits, most
 //   significant first) over the window held in registers: no sort, no
@@ -89,9 +91,11 @@ struct Program {
 // tile, as K2's planar entry. Output row o of a plane is plane row o +
 // out_off (out_off = 0 clamp, R valid). Both buffers hold padded plane rows
 // [g0 - R, g1 + R); the LUTs follow them. kMaxSize is the widest rank or
-// kernel window the program holds.
+// kernel window the program holds; the 3x3 instantiation runs four blocks an
+// SM, at 64 registers (the walking stages'), the wider ones as many as
+// their windows' registers allow.
 template <int kMaxSize>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMaxSize == 3 ? 4 : 1)
     rank_chain_planar_u8_kernel(const uint8_t* __restrict__ in,
                                 uint8_t* __restrict__ out,
                                 const uint8_t* __restrict__ luts, int n_luts,
@@ -119,19 +123,19 @@ __global__ void __launch_bounds__(kThreads)
     switch (prog.op[k]) {
       case kGaussian:
         switch (arg) {
-          case 1: HIPE_STAGE(lanes::Gaussian<1>{}); break;
+          case 1: HIPE_STAGE(lanes::Gaussian3Pairs{}); break;
           case 2: HIPE_STAGE(lanes::Gaussian<2>{}); break;
           case 3: HIPE_STAGE(lanes::Gaussian<3>{}); break;
           default: HIPE_STAGE(lanes::Gaussian<4>{}); break;
         }
         break;
-      case kSharpen: HIPE_STAGE(lanes::Sharpen{}); break;
-      case kEdge: HIPE_STAGE(lanes::Edge{}); break;
+      case kSharpen: HIPE_STAGE(lanes::SharpenPairs{}); break;
+      case kEdge: HIPE_STAGE(lanes::EdgePairs{}); break;
       case kInvert: HIPE_STAGE(lanes::Invert{}); break;
       case kSolarize: HIPE_STAGE(lanes::Solarize{}); break;
       case kPosterize: HIPE_STAGE(lanes::Posterize{arg}); break;
       case kLut: HIPE_STAGE(lanes::Lut{lut_s + 256 * arg}); break;
-      case kMedian: HIPE_STAGE(lanes::Median3{}); break;
+      case kMedian: HIPE_STAGE(lanes::Median3Pairs{}); break;
       case kErode: HIPE_STAGE(lanes::Extreme3<false>{}); break;
       case kDilate: HIPE_STAGE(lanes::Extreme3<true>{}); break;
       case kRank:

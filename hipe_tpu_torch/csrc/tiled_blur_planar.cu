@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(kThreads)
   t.stage_input(in, vec_in != 0);
   __syncthreads();
   if constexpr (R == 1) {
-    t.run(tiled::Gaussian3Pairs{}, out, vec_out != 0);
+    t.run(lanes::Gaussian3Pairs{}, out, vec_out != 0);
   } else {
     t.run(lanes::Gaussian<R>{}, out, vec_out != 0);
   }

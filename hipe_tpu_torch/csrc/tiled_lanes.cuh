@@ -1,7 +1,7 @@
 // The padded 2-D window that K4 (tiled_blur_planar.cu) and K5
-// (tiled_stage_planar.cu) share: chain_lanes.cuh's run forms over a tile of
-// a large plane, walking forms of three of its 16-bit-lane stages, and a
-// per-pixel loop for rank_stages.cuh's functors.
+// (tiled_stage_planar.cu) share: chain_lanes.cuh's run and walking forms
+// over a tile of a large plane, and a per-pixel loop for rank_stages.cuh's
+// functors.
 //
 // A block owns `rows` output rows and `cols` output columns of one plane: a
 // launch's tile of TH x TW, TW rounded up to a run of kRun = 8 so that every
@@ -53,97 +53,6 @@ __host__ __device__ constexpr long long window_pitch(long long tw) {
 __host__ __device__ constexpr long long window_bytes(int r, long long th, long long tw) {
   return (th + 2 * r) * window_pitch(tw);
 }
-
-// The column pairs of row y around the run at x (chain_lanes.cuh's
-// col_pairs of Win::load).
-__device__ __forceinline__ void load_pairs(const lanes::Win& s, int y, int x, uint32_t c[8]) {
-  uint32_t wd[kWords + 2];
-  s.load(y, x, wd);
-  lanes::col_pairs(wd, c);
-}
-
-// --- gaussian3, edge and the 3x3 median of chain_lanes.cuh in 16-bit lanes,
-// from the column pairs of the rows above (t), at (m) and below (b) the
-// output row. Each computes what its chain_lanes.cuh form computes, to the
-// bit; a thread that walks down its column of runs loads and unpacks each
-// row once, not three times. Output pair k (columns o, o + 2; o = 0, 1, 4,
-// 5) reads pairs j, j + 1, j + 2 with j = k + (k & 2); pair j + 1 holds its
-// own columns.
-
-struct Gaussian3Pairs {
-  __device__ __forceinline__ lanes::Run operator()(const uint32_t t[8], const uint32_t m[8],
-                                                   const uint32_t b[8]) const {
-    uint32_t v[8], o[4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = t[j] + 2 * m[j] + b[j];  // lanes <= 1020
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = k + (k & 2);
-      o[k] = (v[j] + 2 * v[j + 1] + v[j + 2]) >> 4;  // lanes <= 4080
-    }
-    return lanes::pack_pairs(o);
-  }
-};
-
-struct EdgePairs {
-  __device__ __forceinline__ lanes::Run operator()(const uint32_t t[8], const uint32_t m[8],
-                                                   const uint32_t b[8]) const {
-    uint32_t cs[8], o[4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[j] = t[j] + 2 * m[j] + b[j];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = k + (k & 2);
-      const uint32_t gx = lanes::pabsdiff(cs[j + 2], cs[j]);
-      const uint32_t gy =
-          lanes::pabsdiff(b[j] + 2 * b[j + 1] + b[j + 2], t[j] + 2 * t[j + 1] + t[j + 2]);
-      o[k] = lanes::pmin3(gx + gy, 255u * 0x10001u, 255u * 0x10001u);
-    }
-    return lanes::pack_pairs(o);
-  }
-};
-
-struct Median3Pairs {
-  __device__ __forceinline__ lanes::Run operator()(const uint32_t t[8], const uint32_t m[8],
-                                                   const uint32_t b[8]) const {
-    uint32_t lo[8], mi[8], hi[8], o[4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      lo[j] = lanes::pmin3(t[j], m[j], b[j]);
-      hi[j] = lanes::pmax3(t[j], m[j], b[j]);
-      mi[j] = t[j] + m[j] + b[j] - lo[j] - hi[j];
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = k + (k & 2);
-      o[k] = lanes::pmid3(lanes::pmax3(lo[j], lo[j + 1], lo[j + 2]),
-                          lanes::pmid3(mi[j], mi[j + 1], mi[j + 2]),
-                          lanes::pmin3(hi[j], hi[j + 1], hi[j + 2]));
-    }
-    return lanes::pack_pairs(o);
-  }
-};
-
-// A stage that walks: the pair forms above. Every other run form is computed
-// a run at a time from the window (chain_lanes.cuh's forms). sharpen is
-// one: it reads only the own columns of the rows above and below, so a run
-// at a time costs it less than the walk's third row of pairs in registers.
-template <class S>
-struct Walks {
-  static constexpr bool value = false;
-};
-template <>
-struct Walks<Gaussian3Pairs> {
-  static constexpr bool value = true;
-};
-template <>
-struct Walks<EdgePairs> {
-  static constexpr bool value = true;
-};
-template <>
-struct Walks<Median3Pairs> {
-  static constexpr bool value = true;
-};
 
 // One block's tile of one plane, and its window.
 struct Window {
@@ -238,8 +147,8 @@ struct Window {
     const int yb = min(ya + band, y0 + rows);
     for (int x = x0 + m.tx * kRun; x < x0 + cols; x += m.cols * kRun) {
       const lanes::RunEdge e(x, w);
-      if constexpr (Walks<Stage>::value) {
-        walk(f, src, dst, e, x, ya, yb);
+      if constexpr (lanes::Walks<Stage>::value) {
+        lanes::walk(f, src, dst, e, x, ya, yb);
       } else {
         for (int y = ya; y < yb; ++y) dst.put(y, x, e, f(src, y, x));
       }
@@ -264,30 +173,6 @@ struct Window {
       for (int x = x0 + m.tx; x < x0 + cols; x += m.cols) {
         line[x] = static_cast<uint8_t>(f(src, y, x, 0));
       }
-    }
-  }
-
-  // Rows [ya, yb) of the run at x, the three rows' column pairs kept in
-  // registers: each step loads and unpacks one row, and the three arrays
-  // take turns as the row above, at and below, so no register moves.
-  template <class Stage>
-  __device__ __forceinline__ static void walk(const Stage& f, const lanes::Win& s,
-                                              const lanes::GlobalSink& dst,
-                                              const lanes::RunEdge& e, int x, int ya, int yb) {
-    if (ya >= yb) return;
-    uint32_t p0[8], p1[8], p2[8];
-    load_pairs(s, ya - 1, x, p0);
-    load_pairs(s, ya, x, p1);
-    for (int y = ya;; y += 3) {
-      load_pairs(s, y + 1, x, p2);
-      dst.put(y, x, e, f(p0, p1, p2));
-      if (y + 1 >= yb) break;
-      load_pairs(s, y + 2, x, p0);
-      dst.put(y + 1, x, e, f(p1, p2, p0));
-      if (y + 2 >= yb) break;
-      load_pairs(s, y + 3, x, p1);
-      dst.put(y + 2, x, e, f(p2, p0, p1));
-      if (y + 3 >= yb) break;
     }
   }
 };

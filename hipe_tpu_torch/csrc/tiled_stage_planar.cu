@@ -73,8 +73,8 @@ __device__ __forceinline__ void tiled_stage(const uint8_t* __restrict__ in,
   __syncthreads();
   const bool vec = vec_out != 0;
   if constexpr (kOp == kSharpen) t.run(lanes::Sharpen{}, out, vec);
-  if constexpr (kOp == kEdge) t.run(tiled::EdgePairs{}, out, vec);
-  if constexpr (kOp == kMedian) t.run(tiled::Median3Pairs{}, out, vec);
+  if constexpr (kOp == kEdge) t.run(lanes::EdgePairs{}, out, vec);
+  if constexpr (kOp == kMedian) t.run(lanes::Median3Pairs{}, out, vec);
   if constexpr (kOp == kErode) t.run(lanes::Extreme3<false>{}, out, vec);
   if constexpr (kOp == kDilate) t.run(lanes::Extreme3<true>{}, out, vec);
   if constexpr (kOp == kInvert) t.run(lanes::Invert{}, out, vec);

@@ -102,3 +102,46 @@ def test_k2_halo_taller_than_the_tile(cuda, h_pad):
         got = filter_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"rows_per_block={rpb}"
+
+
+# gaussian3, sharpen and edge first, in the middle and last, beside a point
+# stage, a LUT and a wider gaussian: gaussian3 and edge walk down bands of
+# rows in 16-bit lanes, the others go a run at a time.
+WALK_CHAINS = [
+    ("gaussian3", "invert", "sharpen", LUT_NAME, "edge"),
+    ("edge", "sharpen", "gaussian3"),
+    (LUT_NAME, "gaussian3", "edge", "posterize4"),
+    ("solarize", "sharpen", "edge", "gaussian3", LUT_NAME),
+    ("gaussian5", "edge", "invert", "gaussian3", "gaussian7"),
+    ("edge", "edge", "gaussian3", "gaussian3"),
+]
+
+
+@pytest.mark.parametrize("shape", [(3, 240, 320), (2, 61, 257), (2, 45, 37)])
+@pytest.mark.parametrize("h_pad", [True, False])
+@pytest.mark.parametrize("names", WALK_CHAINS, ids="+".join)
+def test_k2_walking_stages_in_every_position(cuda, names, h_pad, shape):
+    """Every rows_per_block the autotune sweeps and the whole plane, on the
+    benchmark's 240x320 planes and on odd widths."""
+    x = _planes(cuda, shape, 7 * len(names) + shape[2])
+    want = tblur.filter_chain(x, names, h_axis=-2, w_axis=-1, h_pad=h_pad)
+    for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, want.shape[1]}):
+        got = filter_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"rows_per_block={rpb}"
+
+
+@pytest.mark.parametrize("shape", [(3, 240, 320), (2, 61, 257)])
+@pytest.mark.parametrize("h_pad", [True, False])
+@pytest.mark.parametrize("names", [("median", "gaussian3"), ("edge", "median", "sharpen")],
+                         ids="+".join)
+def test_k3_walking_stages(cuda, names, h_pad, shape):
+    """K3 runs the same tile: its median, gaussian3 and edge walk too."""
+    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+
+    x = _planes(cuda, shape, 11 * len(names) + shape[2])
+    want = tblur.filter_chain(x, names, h_axis=-2, w_axis=-1, h_pad=h_pad)
+    for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, want.shape[1]}):
+        got = rank_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"rows_per_block={rpb}"

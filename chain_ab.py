@@ -92,17 +92,24 @@ STAGES = (
 STAGE_ROWS_PER_BLOCK = (8, 32, 64, 128)
 
 
+def chain_kernel(names):
+    """K2's wrapper for a band chain (a single gaussian too), else K3's."""
+    from hipe_tpu_torch.ops.chain_program import is_band_chain
+    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
+
+    return filter_chain_planar_cuda if is_band_chain(names) else rank_chain_planar_cuda
+
+
 def stages(cs) -> dict:
     """ms a pass of each program of STAGES at each of STAGE_ROWS_PER_BLOCK."""
     import torch
-
-    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randint(0, 256, (cs.NUM_IMAGES * cs.CHANNELS, cs.SIDE, cs.SIDE),
                       dtype=torch.uint8, device="cuda", generator=gen)
     out = torch.empty_like(x)
-    return {f"{'+'.join(names)}@{rpb}": cs.cuda_ms(lambda: filter_chain_planar_cuda(
+    return {f"{'+'.join(names)}@{rpb}": cs.cuda_ms(lambda: chain_kernel(names)(
                 x, names, rows_per_block=rpb, out=out), reps=5)
             for names in STAGES for rpb in STAGE_ROWS_PER_BLOCK}
 
@@ -157,6 +164,7 @@ def tiled(cs, card: str, sweep: bool) -> dict:
 
     from hipe_tpu_torch.ops import blur as tblur
     from hipe_tpu_torch.ops.cuda_tiled import filter_stage_planar_tiled_cuda
+    from hipe_tpu_torch.ops.planar import TILE_COLS_CANDIDATES, TILE_ROWS_CANDIDATES
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
     from hipe_tpu_torch.utils.images import checker_image
 
@@ -175,7 +183,8 @@ def tiled(cs, card: str, sweep: bool) -> dict:
         runner = DeviceStreamRunner("blur3", num_images=cs.LARGE_FRAMES, image=image,
                                     device="cuda")
         x, out = runner.stream, runner._bufs[0]
-        tiles = [*runner.tile_candidates(), *((th, cs.LARGE_W) for th in (8, 16, 32, 48)),
+        tiles = [*((th, tw) for th in TILE_ROWS_CANDIDATES for tw in TILE_COLS_CANDIDATES),
+                 *((th, cs.LARGE_W) for th in (8, 16, 32, 48)),
                  (128, 256), (128, 512), (64, 1024), (128, 1024)]
         res["K5 stages"] = {}
         for name in cs.K5_STAGES:
@@ -202,8 +211,7 @@ def blur(cs, card: str) -> dict:
     from hipe_tpu_torch.models.pipelines import get
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
     from hipe_tpu_torch.ops.cuda_tiled import gaussian_blur_planar_tiled_cuda
-    from hipe_tpu_torch.runtime.device_stream import (TILE_COLS_CANDIDATES,
-                                                      TILE_ROWS_CANDIDATES)
+    from hipe_tpu_torch.ops.planar import TILE_COLS_CANDIDATES, TILE_ROWS_CANDIDATES
 
     res = {}
     r = cs.phase_main_path(card, "6", "blur3")
@@ -258,7 +266,7 @@ def k2_rows(cs) -> dict:
 
     from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
     from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
-    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+    from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
 
     res = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -407,7 +415,6 @@ def one(root: str, mode: str) -> dict:
 
     import chip_smoke as cs
     from hipe_tpu_torch.ops import blur as tblur
-    from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 
     card = cs.phase_env()
@@ -441,9 +448,9 @@ def one(root: str, mode: str) -> dict:
         res["sweep"] = {}
         for names in CHAINS:
             times = {}
-            for rpb in runner.block_candidates():
+            for rpb in (c["rows_per_block"] for _, c, _ in runner.candidates):
                 try:
-                    times[rpb] = cs.cuda_ms(lambda: filter_chain_planar_cuda(
+                    times[rpb] = cs.cuda_ms(lambda: chain_kernel(names)(
                         x, names, rows_per_block=rpb, out=out), reps=3)
                 except RuntimeError:
                     continue  # a tile beyond shared memory: refused

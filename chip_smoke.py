@@ -350,8 +350,13 @@ def phase_build(card: str) -> None:
 
     t0 = time.perf_counter()
     lib = _build.build()
-    for mod in (cuda_blur, cuda_chain, cuda_rank_chain, cuda_tiled, cuda_dct):
-        mod._kernel_lib()
+    for wrapper in (cuda_blur.gaussian_blur_planar_cuda, cuda_blur.gaussian_blur_rows_cuda,
+                    cuda_chain.filter_chain_planar_cuda, cuda_chain.filter_chain_rows_cuda,
+                    cuda_rank_chain.rank_chain_planar_cuda,
+                    cuda_tiled.gaussian_blur_planar_tiled_cuda,
+                    cuda_tiled.filter_stage_planar_tiled_cuda, cuda_dct.dequant_idct_cuda,
+                    cuda_dct.fdct_quantize_cuda):
+        wrapper.launch.bind()
     secs = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -549,7 +554,7 @@ def check_counts(wrappers: dict, expect: dict, path: str) -> dict:
 
 def phase_kernel_vs_plain(card: str) -> int:
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, out_rows
-    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+    from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -590,9 +595,9 @@ def chain_kernel_vs_plain(label: str, fn, chains: tuple, seed: int) -> tuple[int
     and the first of them on the full stream, clamp and valid, every
     ``rows_per_block`` whose tile fits shared memory. Returns (max-abs
     error, launches, cases)."""
-    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK, fused_shared_bytes
     from hipe_tpu_torch.ops.blur import chain_radius
-    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+    from hipe_tpu_torch.ops.planar import (ROWS_PER_BLOCK_CANDIDATES, SHARED_BYTES_PER_BLOCK,
+                                           fused_shared_bytes)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -697,7 +702,7 @@ def device_busy(fn) -> tuple[float, float]:
 
 def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
     """Drive one pipeline's 5000-image stream; the launch counts over it alone."""
-    from hipe_tpu_torch.ops.cuda_chain import is_band_chain
+    from hipe_tpu_torch.ops.chain_program import is_band_chain
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 
     wrappers = reset_counts()
@@ -767,10 +772,9 @@ def phase_rows_vs_plain(card: str, phase: str, label: str, fn, counter, chains: 
     memory. With ``record``, also time the first chain over the full rows
     stream at each of those rows_per_block, and its plain version, for the
     record."""
-    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK
     from hipe_tpu_torch.ops.blur import chain_radius
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
-    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+    from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES, SHARED_BYTES_PER_BLOCK
 
     def rows_entry_bytes(rows: int, lanes: int, names: tuple) -> int:
         """Shared memory of the rows entry a block: none for K1's, K2's two
@@ -840,7 +844,7 @@ def phase_tiled_vs_plain(card: str, phase: str, label: str, fn, counter, stages:
     5000-image planar stream at every tile shape, for the record. Returns
     (max-abs error, the record's best ms or None)."""
     from hipe_tpu_torch.ops.blur import FILTER_RADIUS
-    from hipe_tpu_torch.runtime.device_stream import TILE_COLS_CANDIDATES, TILE_ROWS_CANDIDATES
+    from hipe_tpu_torch.ops.planar import TILE_COLS_CANDIDATES, TILE_ROWS_CANDIDATES
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -889,7 +893,7 @@ def phase_rows_main_path(card: str) -> dict:
     """blur3 over the resident 5000-image rows stream through Pipeline.apply_rows."""
     from hipe_tpu_torch.models.pipelines import get
     from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
-    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+    from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
     from hipe_tpu_torch.utils.images import checker_image
 
     wrappers = reset_counts()
@@ -906,8 +910,7 @@ def phase_rows_main_path(card: str) -> dict:
             x = pipe.apply_rows(x, CHANNELS, rows_per_block=rpb, out=bufs[i % 2])
         return x
 
-    fits = [rpb for rpb in sorted({*ROWS_PER_BLOCK_CANDIDATES, SIDE})
-            if pipe.rows_entry_fits(SIDE, SIDE, CHANNELS, rows_per_block=rpb)]
+    fits = sorted({*ROWS_PER_BLOCK_CANDIDATES, SIDE})  # K1 takes no shared memory
     tune = {rpb: cuda_ms(lambda: passes(rpb, PASSES)) / PASSES for rpb in fits}
     best = min(tune, key=tune.get)
     ms, sessions = median_pass_ms(lambda: passes(best, PASSES))
@@ -942,11 +945,13 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
     """Drive 100 frames of 4000x2250 through DeviceStreamRunner: the chain
     on K4/K5 (too wide for K2), blur3 on K1 (no width limit), each beside
     the other route's time."""
-    from hipe_tpu_torch.models.pipelines import SHARED_BYTES_PER_BLOCK, fused_shared_bytes
     from hipe_tpu_torch.ops import cuda_tiled
     from hipe_tpu_torch.ops.blur import FILTER_RADIUS, GAUSSIANS
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
     from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+    from hipe_tpu_torch.ops.planar import (SHARED_BYTES_PER_BLOCK, TILE_COLS_CANDIDATES,
+                                           TILE_ROWS_CANDIDATES, fused_shared_bytes,
+                                           tiled_shared_bytes)
     from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
     from hipe_tpu_torch.utils.images import checker_image
 
@@ -954,9 +959,10 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
     image = checker_image(LARGE_H, LARGE_W, CHANNELS, seed=0)
     runner = DeviceStreamRunner(pipeline, num_images=LARGE_FRAMES, image=image, device="cuda")
     names = runner.pipeline.filters
-    if runner.tiled == runner.pipeline.single_gaussian:
+    tiled = runner.pipeline.routes_tiled(LARGE_H, LARGE_W)
+    if tiled == runner.pipeline.single_gaussian:
         raise AssertionError(f"{pipeline} at {LARGE_W}x{LARGE_H} routes "
-                             f"{'tiled' if runner.tiled else 'fused'}: K1 takes a single "
+                             f"{'tiled' if tiled else 'fused'}: K1 takes a single "
                              "gaussian at any width, K4/K5 every other chain this wide")
     timings = runner.autotune()
     err = runner.verify_max_abs_err()
@@ -965,7 +971,7 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
     got = runner.run_passes(3)
     timed = SESSIONS * 3 * PASSES
     n_k4 = sum(nm in GAUSSIANS for nm in names)
-    if runner.tiled:
+    if tiled:
         expect = {"K4": timed * n_k4}
         if len(names) > n_k4:
             expect["K5"] = timed * (len(names) - n_k4)
@@ -984,10 +990,10 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
     plain_ms = cuda_ms(lambda: plain_chunked(stream, names))
     k4_names = tuple(nm for nm in names if nm in GAUSSIANS)
     k5_names = tuple(nm for nm in names if nm not in GAUSSIANS)
-    tiles = [t for t in runner.tile_candidates()
-             if max(cuda_tiled.shared_bytes(nm, t) for nm in names) <= SHARED_BYTES_PER_BLOCK]
+    tiles = [t for t in ((th, tw) for th in TILE_ROWS_CANDIDATES for tw in TILE_COLS_CANDIDATES)
+             if max(tiled_shared_bytes(nm, t) for nm in names) <= SHARED_BYTES_PER_BLOCK]
     own = {}
-    if runner.tiled:
+    if tiled:
         # Each kernel's own time a pass at the chosen tile (its stages on the
         # stream), and the plain version of those stages.
         tile = runner.config["tile"]
@@ -1030,7 +1036,7 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
     # kernel that reads and writes it once can reach), and the one-call
     # counterparts of K5's invert and posterize4, beside K5's own times.
     yard = {"copy_": cuda_ms(lambda: buf.copy_(stream), reps=PASSES)}
-    if runner.tiled:
+    if tiled:
         tile = runner.config["tile"]
         yard["bitwise_not"] = cuda_ms(lambda: torch.bitwise_not(stream, out=buf), reps=PASSES)
         yard["bitwise_and"] = cuda_ms(lambda: torch.bitwise_and(stream, 0xF0, out=buf),
@@ -1859,19 +1865,20 @@ def stats_image(kind: str, seed: int) -> np.ndarray:
 @contextlib.contextmanager
 def plain_k3():
     """While the block runs, K3 is its plain version on the card (in chunks)
-    wherever the port calls it: sharpness's SMOOTH plane on the plain chain."""
-    from hipe_tpu_torch.ops import cuda_rank_chain
+    wherever the port's route calls it: sharpness's SMOOTH plane on the plain
+    chain."""
+    from hipe_tpu_torch.ops import planar
 
     def plain(x, names, h_pad=True, rows_per_block=None, out=None):
         y = plain_chunked(x, tuple(names), h_pad)
         return y if out is None else out.copy_(y)
 
-    saved = cuda_rank_chain.rank_chain_planar_cuda
-    cuda_rank_chain.rank_chain_planar_cuda = plain
+    saved = planar.rank_chain_planar_cuda
+    planar.rank_chain_planar_cuda = plain
     try:
         yield
     finally:
-        cuda_rank_chain.rank_chain_planar_cuda = saved
+        planar.rank_chain_planar_cuda = saved
 
 
 def oracle_err(pipe, batch: np.ndarray, got: torch.Tensor) -> int:

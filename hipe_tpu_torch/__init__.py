@@ -19,6 +19,9 @@ easy to find:
 - :mod:`hipe_tpu_torch.ops.cuda_tiled` — the hand-written 2-D-tiled kernels
   K4 (``csrc/tiled_blur_planar.cu``) and K5 (``csrc/tiled_stage_planar.cu``)
   that replace the Pallas halo-tiled kernels for large frames;
+- :mod:`hipe_tpu_torch.ops.planar` — ``filter_planar``, the one choice among
+  K1-K5 of a planar chain; every kernel launches through ``ops/_build.py``'s
+  ``entry``;
 - :mod:`hipe_tpu_torch.ops.cuda_dct` — the hand-written DCT kernels K6
   (dequantize + IDCT) and K7 (fDCT + quantize) of the device JPEG codec
   (``csrc/dct_blocks.cu``), which replace the Pallas DCT kernels;

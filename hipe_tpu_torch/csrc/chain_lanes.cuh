@@ -60,7 +60,7 @@ static_assert(kRun == 8, "a run is two words: four output pairs of 16-bit lanes"
 
 // Bytes of a buffer row for planes w wide: kLead, the w columns, and pads up
 // to column round_up(w, kRun) + 3, rounded up to 16 bytes.
-// models/pipelines.py:lane_pitch computes the same.
+// ops/planar.py:lane_pitch computes the same.
 __host__ __device__ constexpr long long lane_pitch(long long w) {
   return ((w + kRun - 1) / kRun * kRun + kLead + 4 + 15) & ~15LL;
 }

@@ -17,8 +17,7 @@ namespace {
 constexpr int kThreads = 256;
 
 // Stage op codes. K2 takes 0-6, K3 every one, K5 every one but gaussian;
-// hipe_tpu_torch/ops/cuda_chain.py and cuda_rank_chain.py encode the same
-// values.
+// hipe_tpu_torch/ops/chain_program.py encodes the same values.
 enum Op : int {
   kGaussian = 0,   // arg: radius 1..4
   kSharpen = 1,

@@ -19,7 +19,7 @@
 // A stage's run at column x reads columns x - 4 .. x + 11 (Win::load), so a
 // window row needs (x0 - 4) rounded down to 16 .. x0 + TW + 4 rounded up to
 // 16; window_pitch is the most that takes over the tiles of a launch.
-// hipe_tpu_torch/ops/cuda_tiled.py:shared_bytes computes the same.
+// hipe_tpu_torch/ops/planar.py:tiled_shared_bytes computes the same.
 
 #pragma once
 

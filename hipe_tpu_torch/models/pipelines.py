@@ -9,16 +9,10 @@ on interleaved rows ``(B, H, W*C)`` and channels-last batches, the layout of
 the serving path and the library boundary. On the card they run the
 hand-written CUDA kernels.
 
-Single gaussians (``blur3/5/7/9``) run K1, every other chain of band and
-point stages runs the fused chain kernel K2, and every chain with a rank or
-registered-kernel stage runs K3, as ``hipe_tpu`` routes them to its blur
-kernel, ``_chain_mxu_kernel`` and ``_chain_kernel``. A plane too wide for
-K2's or K3's shared memory (:func:`routes_tiled`, e.g. the reference's
-4000x2250 frames) runs stage by stage on the tiled kernels K4 (gaussian)
-and K5 (every other stage), as ``hipe_tpu`` sends oversized planes to
-``_tiled_blur_kernel`` and ``_tiled_point_kernel``. K1 keeps its row sums
-in registers and takes planes of any width, so a single gaussian stays on
-it (at 4000x2250 it runs faster than K4; PERF.md).
+On the card :func:`hipe_tpu_torch.ops.planar.filter_planar` chooses the
+kernel of a planar chain: K1 for a single gaussian, K2 for every other band
+and point chain, K3 for a chain with a rank or registered-kernel stage, K4
+and K5 stage by stage for planes too wide for K2's or K3's shared memory.
 
 :class:`GlobalStatsPipeline` carries ``hipe_tpu``'s global-statistics
 family (equalize, autocontrast, contrast, color, sharpness, mode, mode5):
@@ -31,53 +25,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import ClassVar
 
 import numpy as np
 import torch
 
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops import cuda_blur
 from hipe_tpu_torch.ops import equalize as eq
-from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
-from hipe_tpu_torch.ops.cuda_chain import check_stages, filter_chain_planar_cuda
-from hipe_tpu_torch.ops.cuda_tiled import RUN as LANE_RUN
-from hipe_tpu_torch.ops.cuda_tiled import filter_chain_planar_tiled_cuda
-
-# Shared memory a thread block may take on an H100 (227 KB, opted in above
-# the default 48 KB), and the tile height a fused kernel must be able to
-# stage within it for a plane to stay on K1, K2 or K3. The threshold
-# replaces hipe_tpu's WHOLE_PLANE_PIXEL_LIMIT, which is sized to a TPU's VMEM.
-SHARED_BYTES_PER_BLOCK = 232_448
-ROUTE_TILE_ROWS = 32
-
-
-def lane_pitch(w: int) -> int:
-    """Bytes of one padded row of K2's and K3's stage buffers for planes
-    ``w`` wide (``lane_pitch`` in ``csrc/chain_lanes.cuh``): 16 lead bytes,
-    the row, pads to column ``round_up(w, LANE_RUN) + 3``, rounded up to 16."""
-    return (-(-w // LANE_RUN) * LANE_RUN + 20 + 15) & ~15
-
-
-def fused_shared_bytes(rows: int, w: int, names) -> int:
-    """Shared memory of one block of the fused kernel that takes ``names``
-    for a tile of ``rows`` planar rows of ``w`` bytes and its halo: none
-    for a single gaussian (K1 keeps its row sums in registers,
-    :func:`hipe_tpu_torch.ops.cuda_blur.shared_bytes`); else K2's and K3's
-    two padded uint8 buffers of :func:`lane_pitch` bytes a row and 256
-    bytes for each distinct LUT stage."""
-    r = tblur.chain_radius(names)
-    if len(names) == 1 and names[0] in tblur.GAUSSIANS:
-        return cuda_blur.shared_bytes(rows, w, r, True, rows)
-    luts = len({nm for nm in names if nm in tblur.LUT_STAGES})
-    return 2 * (rows + 2 * r) * lane_pitch(w) + 256 * luts
-
-
-def routes_tiled(h: int, w: int, names) -> bool:
-    """Whether (h, w) planes of the chain go to the tiled kernels K4/K5: the
-    fused kernel cannot stage a :data:`ROUTE_TILE_ROWS`-row tile (or the
-    whole plane, if shorter) plus its halo in :data:`SHARED_BYTES_PER_BLOCK`.
-    Both routes give the same integers."""
-    return fused_shared_bytes(min(ROUTE_TILE_ROWS, h), w, names) > SHARED_BYTES_PER_BLOCK
+from hipe_tpu_torch.ops import planar
+from hipe_tpu_torch.ops.chain_program import check_stages
+from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +59,13 @@ class Pipeline:
 
     def routes_tiled(self, h: int, w: int) -> bool:
         """Whether :meth:`apply_planar` sends (h, w) planes to K4/K5."""
-        return routes_tiled(h, w, self.filters)
+        return planar.routes_tiled(h, w, self.filters)
+
+    def launch_candidates(self, h: int, w: int, device) -> list[tuple[str, dict, str | None]]:
+        """The autotune's (label, config, reason to skip or None) for (h, w)
+        planes: the launch knob of the route :meth:`apply_planar` takes
+        (:func:`hipe_tpu_torch.ops.planar.launch_candidates`) on any device."""
+        return planar.launch_candidates(h, w, self.filters)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Plain path on (..., H, W, C) uint8 batches."""
@@ -112,32 +75,16 @@ class Pipeline:
                      rows_per_block: int | None = None, tile=None,
                      out: torch.Tensor | None = None) -> torch.Tensor:
         """Planar (N, H, W) path: K1, K2 or K3 on the card, or K4 and K5 for
-        planes too wide for them; plain on the CPU.
+        planes too wide for them (:func:`hipe_tpu_torch.ops.planar.filter_planar`);
+        plain on the CPU.
 
         ``h_pad=False`` treats H as halo-padded by :attr:`radius` rows per
         side and returns the valid interior (row-split shard mode), on
         either route. ``rows_per_block`` is the fused kernels' launch knob,
         ``tile`` the tiled kernels'.
         """
-        if self.routes_tiled(planes.shape[-2], planes.shape[-1]):
-            return filter_chain_planar_tiled_cuda(planes, self.filters, tile=tile,
-                                                  h_pad=h_pad, out=out)
-        if self.single_gaussian:
-            return gaussian_blur_planar_cuda(
-                planes, self.radius, h_pad=h_pad,
-                rows_per_block=rows_per_block, out=out)
-        return filter_chain_planar_cuda(
-            planes, self.filters, h_pad=h_pad, rows_per_block=rows_per_block,
-            out=out)
-
-    def rows_entry_fits(self, h: int, w: int, channels: int, *, h_pad: bool = True,
-                        rows_per_block: int | None = None) -> bool:
-        """Whether K1's rows entry takes (h, w*channels) rows of this
-        pipeline: a single gaussian whose band fits shared memory (the
-        counterpart of ``hipe_tpu``'s ``nhwc_pallas_eligible``). K1 takes
-        none, so every single gaussian does."""
-        return self.single_gaussian and cuda_blur.shared_bytes(
-            h, w * channels, self.radius, h_pad, rows_per_block) <= SHARED_BYTES_PER_BLOCK
+        return planar.filter_planar(planes, self.filters, h_pad=h_pad,
+                                    rows_per_block=rows_per_block, tile=tile, out=out)
 
     def apply_rows(self, rows: torch.Tensor, channels: int, *, h_pad: bool = True,
                    rows_per_block: int | None = None, tile=None,
@@ -145,8 +92,8 @@ class Pipeline:
         """Interleaved rows ``(B, H, W*C)`` uint8, ``hipe_tpu``'s device
         layout for channels-last data.
 
-        A single gaussian runs K1's rows entry with no relayout
-        (:meth:`rows_entry_fits`); every other chain relayouts on the card to
+        A single gaussian runs K1's rows entry with no relayout (K1 takes
+        rows of any width); every other chain relayouts on the card to
         planar, runs :meth:`apply_planar` (K2, K3 or K4/K5) and relayouts
         back. On the CPU the path is the plain rows chain.
         ``h_pad=False`` returns the valid interior ``(B, H - 2R, W*C)``.
@@ -158,7 +105,7 @@ class Pipeline:
         if rows.device.type == "cpu":
             y = tblur.filter_chain_rows(rows, channels, self.filters, h_pad=h_pad)
             return y if out is None else out.copy_(y)
-        if self.rows_entry_fits(h, w, channels, h_pad=h_pad, rows_per_block=rows_per_block):
+        if self.single_gaussian:
             return gaussian_blur_rows_cuda(rows, channels, self.radius, h_pad=h_pad,
                                            rows_per_block=rows_per_block, out=out)
         planes = rows.view(b, h, w, channels).permute(0, 3, 1, 2).contiguous()
@@ -187,10 +134,6 @@ class Pipeline:
 # counts, 9 or 25 of them), rounded up.
 STATS_TEMP_BYTES = {"equalize": 12, "autocontrast": 20, "contrast": 20, "color": 36,
                     "sharpness": 40, "mode": 28, "mode5": 48}
-# Bytes of temporaries a plane, not a pixel, of the ops whose card route
-# keeps none the size of its input: equalize's kernels K8-K10 hold an int32
-# histogram and a uint8 table a plane.
-STATS_CARD_PLANE_TEMP_BYTES = {"equalize": 256 * 4 + 256}
 # The temporaries a chunk may hold: at the 5000-image stream's 983 MB an
 # unchunked equalize on the CPU route would take 7.9 GB of int64 index
 # alone, mode5 some 47 GB.
@@ -205,11 +148,11 @@ def global_stats_chunk(h: int, w: int, channels: int, name: str,
     at least one image. Every statistic is an image's, so chunks give the
     same bytes as one call (``hipe_tpu``'s ``_global_stats_chunk``, which
     sizes its chunks for a TPU's HBM). On a CUDA device an op of
-    :data:`STATS_CARD_PLANE_TEMP_BYTES` holds that much a plane, so a
-    stream is one chunk."""
+    :attr:`GlobalStatsPipeline.CARD_ROUTES` holds its route's bytes a
+    plane, so a stream is one chunk."""
     per_plane = h * w * STATS_TEMP_BYTES[name]
-    if torch.device(device).type == "cuda":
-        per_plane = STATS_CARD_PLANE_TEMP_BYTES.get(name, per_plane)
+    if torch.device(device).type == "cuda" and name in GlobalStatsPipeline.CARD_ROUTES:
+        per_plane = GlobalStatsPipeline.CARD_ROUTES[name][1]
     return channels * max(1, STATS_CHUNK_BYTES // (channels * per_plane))
 
 
@@ -237,6 +180,11 @@ class GlobalStatsPipeline:
     runtime's call sites work unchanged, and write into ``out=`` when it is
     given. On CUDA tensors every op runs on the card.
     """
+
+    # The ops whose card route runs hand-written kernels: the route's
+    # autotune label and the bytes of temporaries it holds a plane, not a
+    # pixel (equalize's K8-K10: an int32 histogram and a uint8 table).
+    CARD_ROUTES: ClassVar[dict] = {"equalize": ("cuda_k8_k10", 256 * 4 + 256)}
 
     name: str
     filters: tuple = ()
@@ -282,10 +230,12 @@ class GlobalStatsPipeline:
             return f"factor {float(self.factor)}"
         return ""
 
-    def routes_tiled(self, h: int, w: int) -> bool:
-        """False: the family has no launch knob of its own (sharpness's K3
-        or K5 routes itself)."""
-        return False
+    def launch_candidates(self, h: int, w: int, device) -> list[tuple[str, dict, str | None]]:
+        """One autotune config, no knob of its own (sharpness's K3 or K5
+        routes itself), named after the op's route on ``device``: its
+        :attr:`CARD_ROUTES` label on a CUDA device, else ``torch_ops``."""
+        card = torch.device(device).type == "cuda" and self.name in self.CARD_ROUTES
+        return [(self.CARD_ROUTES[self.name][0] if card else "torch_ops", {}, None)]
 
     def _planar_fn(self, channels: int):
         """The planar op with this pipeline's settings, grouping ``channels``."""

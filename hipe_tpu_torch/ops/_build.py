@@ -13,6 +13,11 @@ objects are linked into one shared library with a plain C interface::
 unchanged one is reused. ``build/`` is git-ignored. The library includes no
 PyTorch header, which keeps the build to seconds. ``nvcc`` is looked up on
 ``PATH``, then under ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).
+
+:func:`entry` is the one way a wrapper launches a kernel: it declares a C
+entry point's argument types once and returns its launcher, which runs on
+the tensor's device and current stream, raises on a CUDA error and counts
+the launch in the wrapper's ``launches``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -117,3 +124,57 @@ def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call (by one thread)."""
     with _BUILD_LOCK:
         return _load()
+
+
+# Argument types of the entry points: a pointer, an int, a 64-bit size.
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+@functools.cache
+def _error_string():
+    fn = load_library().hipe_cuda_error_string
+    fn.argtypes, fn.restype = [I], ctypes.c_char_p
+    return fn
+
+
+class Launch:
+    """The launcher of one C entry point of the kernels' library.
+
+    Every entry point takes its arguments, then the CUDA stream, and returns
+    a ``cudaError_t``. The library loads, and the argument types are
+    declared, at the first launch (or :meth:`bind`), never at import.
+    """
+
+    def __init__(self, owner, symbol: str, argtypes):
+        self.owner, self.symbol, self.argtypes = owner, symbol, [*argtypes, P]
+        self._fn = None
+
+    def bind(self):
+        """The entry point, its argument types declared."""
+        if self._fn is None:
+            fn = getattr(load_library(), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, I
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, x: torch.Tensor, describe, *args) -> None:
+        """Launch on ``x``'s device and its current stream; on a CUDA error
+        raise ``RuntimeError`` naming ``describe()``, the error and its code."""
+        fn = self._fn or self.bind()
+        with torch.cuda.device(x.device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            msg = _error_string()(rc).decode()
+            raise RuntimeError(f"{describe()}: {msg} (cudaError {rc})")
+        self.owner.launches += 1
+
+
+def entry(symbol: str, *argtypes):
+    """Decorator: the wrapper launches the C entry point ``symbol``, taking
+    ``argtypes`` before the stream, through its ``launch`` (a
+    :class:`Launch`), which counts each launch in its ``launches``."""
+    def declare(wrapper):
+        wrapper.launches = 0
+        wrapper.launch = Launch(wrapper, symbol, argtypes)
+        return wrapper
+    return declare

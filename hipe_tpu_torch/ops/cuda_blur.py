@@ -6,8 +6,8 @@ and ``_chain_mxu_kernel`` on a one-stage gaussian chain compute, as an exact
 integer stencil written for Hopper, on planar ``(N, H, W)`` planes
 (:func:`gaussian_blur_planar_cuda`) and on interleaved rows ``(B, H, W*C)``
 (:func:`gaussian_blur_rows_cuda`, ``gaussian_blur_rows_pallas``'s
-counterpart). Every other chain runs the fused chain kernel K2
-(:mod:`hipe_tpu_torch.ops.cuda_chain`).
+counterpart). Every other chain runs K2-K5, as
+:func:`hipe_tpu_torch.ops.planar.filter_planar` routes it.
 
 For a CUDA tensor each wrapper launches K1 or raises; for a CPU tensor it
 runs the plain PyTorch version (:func:`hipe_tpu_torch.ops.blur.gaussian_blur_planar`,
@@ -17,44 +17,21 @@ kernel is held against on the card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from hipe_tpu_torch.ops import _build
+from hipe_tpu_torch.ops._build import I, P
 from hipe_tpu_torch.ops.blur import GAUSSIANS, gaussian_blur_planar, gaussian_blur_rows
-from hipe_tpu_torch.ops.cuda_chain import check_planar_call
+from hipe_tpu_torch.ops.chain_program import check_planar_call
 
 # Output rows of a warp's band when the caller names none; the runner's
 # autotune sweeps the alternatives.
 DEFAULT_ROWS_PER_BLOCK = 16
 
 
-@functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load_library()
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.hipe_blur_planar_u8.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
-    lib.hipe_blur_planar_u8.restype = ci
-    lib.hipe_blur_rows_u8.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.hipe_blur_rows_u8.restype = ci
-    lib.hipe_cuda_error_string.argtypes = [ci]
-    lib.hipe_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def out_rows(h: int, radius: int, h_pad: bool) -> int:
     """Rows of the blurred plane: H with clamping, H - 2r in valid mode."""
     return h if h_pad else h - 2 * radius
-
-
-def shared_bytes(h: int, lanes: int, radius: int, h_pad: bool,
-                 rows_per_block: int | None) -> int:
-    """Shared memory of one K1 block: none. A warp walks its band of rows
-    with the row sums in registers (``csrc/blur_planar.cu``), so K1 takes
-    planes and rows of any width, at any ``rows_per_block``."""
-    return 0
 
 
 def _check_call(x: torch.Tensor, radius: int, h_pad: bool,
@@ -68,12 +45,7 @@ def _check_call(x: torch.Tensor, radius: int, h_pad: bool,
     return ho, rpb
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _kernel_lib().hipe_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: {msg} (cudaError {rc})")
-
-
+@_build.entry("hipe_blur_planar_u8", P, P, I, I, I, I, I, I)
 def gaussian_blur_planar_cuda(
     x: torch.Tensor,
     radius: int = 1,
@@ -100,19 +72,14 @@ def gaussian_blur_planar_cuda(
         return y if out is None else out.copy_(y)
     if out is None:
         out = torch.empty((n, ho, w), dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _kernel_lib().hipe_blur_planar_u8(
-            x.data_ptr(), out.data_ptr(), n, h, w, radius, int(h_pad), rpb,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, f"blur_planar_u8 launch failed for {(n, h, w)} r={radius} "
-                  f"h_pad={h_pad} rows_per_block={rpb}")
-    gaussian_blur_planar_cuda.launches += 1
+    gaussian_blur_planar_cuda.launch(
+        x, lambda: f"blur_planar_u8 launch failed for {(n, h, w)} r={radius} "
+                   f"h_pad={h_pad} rows_per_block={rpb}",
+        x.data_ptr(), out.data_ptr(), n, h, w, radius, int(h_pad), rpb)
     return out
 
 
-gaussian_blur_planar_cuda.launches = 0
-
-
+@_build.entry("hipe_blur_rows_u8", P, P, I, I, I, I, I, I, I)
 def gaussian_blur_rows_cuda(
     rows: torch.Tensor,
     channels: int,
@@ -139,17 +106,12 @@ def gaussian_blur_rows_cuda(
         return y if out is None else out.copy_(y)
     if out is None:
         out = torch.empty((b, ho, lanes), dtype=torch.uint8, device=rows.device)
-    with torch.cuda.device(rows.device):
-        rc = _kernel_lib().hipe_blur_rows_u8(
-            rows.data_ptr(), out.data_ptr(), b, h, lanes // channels, channels,
-            radius, int(h_pad), rpb, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, f"blur_rows_u8 launch failed for {(b, h, lanes)} C={channels} "
-                  f"r={radius} h_pad={h_pad} rows_per_block={rpb}")
-    gaussian_blur_rows_cuda.launches += 1
+    gaussian_blur_rows_cuda.launch(
+        rows, lambda: f"blur_rows_u8 launch failed for {(b, h, lanes)} C={channels} "
+                      f"r={radius} h_pad={h_pad} rows_per_block={rpb}",
+        rows.data_ptr(), out.data_ptr(), b, h, lanes // channels, channels, radius,
+        int(h_pad), rpb)
     return out
-
-
-gaussian_blur_rows_cuda.launches = 0
 
 
 def gaussian_blur_nhwc_cuda(x: torch.Tensor, radius: int = 1, **kw) -> torch.Tensor:

@@ -15,25 +15,11 @@ what the kernels are held against on the card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
 from hipe_tpu_torch.ops import _build
-
-
-@functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load_library()
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.hipe_dequant_idct_s16, lib.hipe_fdct_quantize_u8):
-        fn.argtypes = [vp, vp, ctypes.POINTER(ctypes.c_uint), ci, ci, ci, vp]
-        fn.restype = ci
-    lib.hipe_cuda_error_string.argtypes = [ci]
-    lib.hipe_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+from hipe_tpu_torch.ops._build import I, P
 
 
 def quant_table(qtable) -> np.ndarray:
@@ -61,17 +47,7 @@ def _check(t: torch.Tensor, dtype: torch.dtype, what: str, align: int) -> None:
         raise ValueError(f"{what} must be {align}-byte aligned on the card")
 
 
-def _launch(fn, src: torch.Tensor, dst: torch.Tensor, q: np.ndarray, b: int, hb: int,
-            wb: int, what: str) -> None:
-    with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), dst.data_ptr(), q.ctypes.data_as(ctypes.POINTER(ctypes.c_uint)),
-                b, hb, wb, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = _kernel_lib().hipe_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed for {(b, hb, wb)} blocks: {msg} "
-                           f"(cudaError {rc})")
-
-
+@_build.entry("hipe_dequant_idct_s16", P, P, P, I, I, I)
 def dequant_idct_cuda(coefs: torch.Tensor, qtable, *,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """K6: dequantize + islow IDCT + range limit of a block grid.
@@ -98,14 +74,13 @@ def dequant_idct_cuda(coefs: torch.Tensor, qtable, *,
         return y if out is None else out.copy_(y)
     if out is None:
         out = torch.empty((b, hb * 8, wb * 8), dtype=torch.uint8, device=coefs.device)
-    _launch(_kernel_lib().hipe_dequant_idct_s16, coefs, out, q, b, hb, wb, "dequant_idct_s16")
-    dequant_idct_cuda.launches += 1
+    dequant_idct_cuda.launch(
+        coefs, lambda: f"dequant_idct_s16 launch failed for {(b, hb, wb)} blocks",
+        coefs.data_ptr(), out.data_ptr(), q.ctypes.data, b, hb, wb)
     return out
 
 
-dequant_idct_cuda.launches = 0
-
-
+@_build.entry("hipe_fdct_quantize_u8", P, P, P, I, I, I)
 def fdct_quantize_cuda(grid: torch.Tensor, qtable, *,
                        out: torch.Tensor | None = None) -> torch.Tensor:
     """K7: level shift + islow fDCT + quantize of a padded sample grid.
@@ -132,9 +107,7 @@ def fdct_quantize_cuda(grid: torch.Tensor, qtable, *,
         return y if out is None else out.copy_(y)
     if out is None:
         out = torch.empty((b, hb, wb, 64), dtype=torch.int16, device=grid.device)
-    _launch(_kernel_lib().hipe_fdct_quantize_u8, grid, out, q, b, hb, wb, "fdct_quantize_u8")
-    fdct_quantize_cuda.launches += 1
+    fdct_quantize_cuda.launch(
+        grid, lambda: f"fdct_quantize_u8 launch failed for {(b, hb, wb)} blocks",
+        grid.data_ptr(), out.data_ptr(), q.ctypes.data, b, hb, wb)
     return out
-
-
-fdct_quantize_cuda.launches = 0

@@ -22,40 +22,15 @@ kernel's launches. Empty planes launch nothing.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from hipe_tpu_torch.ops import _build
 from hipe_tpu_torch.ops import equalize as eq
+from hipe_tpu_torch.ops._build import L, P
 
 BINS = 256
 # The counts are int32, so a plane holds at most this many pixels.
 MAX_PLANE_PIXELS = 2 ** 31 - 1
-
-
-@functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load_library()
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.hipe_equalize_histogram_u8.argtypes = [vp, vp, ll, ll, vp]
-    lib.hipe_equalize_lut_u8.argtypes = [vp, vp, ll, ll, vp]
-    lib.hipe_equalize_apply_u8.argtypes = [vp, vp, vp, ll, ll, vp]
-    for fn in (lib.hipe_equalize_histogram_u8, lib.hipe_equalize_lut_u8,
-               lib.hipe_equalize_apply_u8):
-        fn.restype = ctypes.c_int
-    lib.hipe_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.hipe_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(fn, args: tuple, device: torch.device, what: str) -> None:
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = _kernel_lib().hipe_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {rc})")
 
 
 def _check_planes(planes: torch.Tensor, what: str) -> None:
@@ -90,6 +65,7 @@ def _overlaps_partly(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 != b0 and a0 < b0 + b.numel() and b0 < a0 + a.numel()
 
 
+@_build.entry("hipe_equalize_histogram_u8", P, P, L, L)
 def histogram_planes_cuda(planes: torch.Tensor, *,
                           out: torch.Tensor | None = None) -> torch.Tensor:
     """K8: per-plane 256-bin histograms, ``(N, H, W)`` uint8 -> ``(N, 256)``
@@ -105,16 +81,13 @@ def histogram_planes_cuda(planes: torch.Tensor, *,
         out = torch.empty((n, BINS), dtype=torch.int32, device=planes.device)
     if n == 0 or h * w == 0:
         return out.zero_()
-    _launch(_kernel_lib().hipe_equalize_histogram_u8,
-            (planes.data_ptr(), out.data_ptr(), n, h * w), planes.device,
-            f"equalize_histogram_u8 for {(n, h, w)}")
-    histogram_planes_cuda.launches += 1
+    histogram_planes_cuda.launch(
+        planes, lambda: f"equalize_histogram_u8 for {(n, h, w)} launch failed",
+        planes.data_ptr(), out.data_ptr(), n, h * w)
     return out
 
 
-histogram_planes_cuda.launches = 0
-
-
+@_build.entry("hipe_equalize_lut_u8", P, P, L, L)
 def equalize_lut_cuda(hist: torch.Tensor, npix: int, *,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """K9: PIL ``ImageOps.equalize`` tables from ``(N, 256)`` int32
@@ -136,15 +109,13 @@ def equalize_lut_cuda(hist: torch.Tensor, npix: int, *,
         out = torch.empty((n, BINS), dtype=torch.uint8, device=hist.device)
     if n == 0:
         return out
-    _launch(_kernel_lib().hipe_equalize_lut_u8, (hist.data_ptr(), out.data_ptr(), n, int(npix)),
-            hist.device, f"equalize_lut_u8 for {n} planes of {npix} pixels")
-    equalize_lut_cuda.launches += 1
+    equalize_lut_cuda.launch(
+        hist, lambda: f"equalize_lut_u8 for {n} planes of {npix} pixels launch failed",
+        hist.data_ptr(), out.data_ptr(), n, int(npix))
     return out
 
 
-equalize_lut_cuda.launches = 0
-
-
+@_build.entry("hipe_equalize_apply_u8", P, P, P, L, L)
 def apply_lut_planar_cuda(planes: torch.Tensor, lut: torch.Tensor, *,
                           out: torch.Tensor | None = None) -> torch.Tensor:
     """K10: ``out[n, p] = lut[n, planes[n, p]]`` for ``(N, H, W)`` uint8
@@ -169,11 +140,7 @@ def apply_lut_planar_cuda(planes: torch.Tensor, lut: torch.Tensor, *,
         out = torch.empty_like(planes)
     if out.numel() == 0:
         return out
-    _launch(_kernel_lib().hipe_equalize_apply_u8,
-            (planes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, h * w), planes.device,
-            f"equalize_apply_u8 for {(n, h, w)}")
-    apply_lut_planar_cuda.launches += 1
+    apply_lut_planar_cuda.launch(
+        planes, lambda: f"equalize_apply_u8 for {(n, h, w)} launch failed",
+        planes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, h * w)
     return out
-
-
-apply_lut_planar_cuda.launches = 0

@@ -22,7 +22,7 @@ bit for bit:
   host table and the device computes only the float32 add and ``trunc``.
 - ``sharpness``: PIL ``ImageEnhance.Sharpness``, the same blend against the
   image through PIL's SMOOTH kernel, with PIL's border copy. The SMOOTH
-  plane is the port's ``pil_smooth`` stage through ``Pipeline.apply_planar``:
+  plane is the port's ``pil_smooth`` stage through ``ops/planar.py``:
   on the card kernel K3 (K5 for planes too wide for it), on the CPU the
   plain chain.
 - ``mode`` / ``mode5``: PIL ``ImageFilter.ModeFilter(3 | 5)``. The window
@@ -60,6 +60,7 @@ import re
 import numpy as np
 import torch
 
+from hipe_tpu_torch.ops.planar import filter_planar
 from hipe_tpu_torch.ops.reference import kernel_oracle
 from hipe_tpu_torch.profiling.trace import span
 
@@ -609,10 +610,8 @@ def sharpness_planar(planes: torch.Tensor, channels: int = 3, *, factor: float =
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """(N, H, W) uint8 -> same; channel-independent, so any plane layout
     (``channels`` is taken for the family's signature). The SMOOTH plane is
-    the ``pil_smooth`` stage's, through ``Pipeline.apply_planar``."""
-    from hipe_tpu_torch.models.pipelines import Pipeline
-
-    smooth = Pipeline("pil_smooth", ("pil_smooth",)).apply_planar(planes).to(torch.int32)
+    the ``pil_smooth`` stage's, on the kernel :func:`filter_planar` chooses."""
+    smooth = filter_planar(planes, ("pil_smooth",)).to(torch.int32)
     res = _store(_blend(smooth, planes.to(torch.int32) - smooth, factor), out)
     # PIL's kernel filter copies the border through, so the blend there is x.
     res[:, 0] = planes[:, 0]

@@ -7,7 +7,9 @@ single gaussian, the fused chain kernel K2 for every other band and point
 chain, K3 for a chain with a rank or registered-kernel stage), and only
 checksums and the first image return to the host. Frames too wide for K2
 or K3 (``Pipeline.routes_tiled``, e.g. 4000x2250) run one launch a stage of
-the tiled kernels K4 and K5 instead; K1 takes frames of any width.
+the tiled kernels K4 and K5 instead; K1 takes frames of any width. The
+autotune sweeps the launch configs the pipeline offers
+(``launch_candidates``).
 
 A global-statistics pipeline (``GlobalStatsPipeline``: equalize,
 autocontrast, contrast, color, sharpness, mode) runs its PyTorch ops in
@@ -47,18 +49,11 @@ import numpy as np
 import torch
 
 from hipe_tpu_torch.models import pipelines as plib
-from hipe_tpu_torch.ops import _build, cuda_tiled
+from hipe_tpu_torch.ops import _build
 from hipe_tpu_torch.ops.reference import gaussian_blur_int_oracle
 from hipe_tpu_torch.profiling.trace import span
 from hipe_tpu_torch.utils.images import checker_image, hwc_to_planar
 
-# The launch knob of K1, K2 and K3 swept by autotune: output rows per block,
-# plus one block per whole plane (appended from the plane height).
-ROWS_PER_BLOCK_CANDIDATES = (8, 16, 32, 64, 128)
-# The launch knob of K4 and K5 on the tiled route: output tile rows x
-# columns; a shape whose block would exceed shared memory is skipped.
-TILE_ROWS_CANDIDATES = (8, 16, 32, 64)
-TILE_COLS_CANDIDATES = (128, 256, 512)
 # A stored winner is kept while its fresh time a pass stays within this
 # factor of the stored one (hipe_tpu's _RETUNE_FACTOR); beyond it the full
 # sweep runs again.
@@ -115,12 +110,11 @@ class DeviceStreamRunner:
             self.stream = torch.tensor(stream, device=self.device)  # a copy
         # The two buffers chained passes alternate between.
         self._bufs = (torch.empty_like(self.stream), torch.empty_like(self.stream))
-        # Whether the frames take the tiled route (K4/K5), whose knob is the
-        # tile shape; the fused kernels' is rows_per_block. A global-statistics
-        # pipeline has none.
-        self.tiled = self.pipeline.routes_tiled(h, w)
-        self.config = ({} if self.global_stats else {"tile": None} if self.tiled
-                       else {"rows_per_block": None})
+        # (label, config, reason to skip or None) for each autotune config of
+        # the pipeline's route; every config sets the same knob (none for a
+        # global-statistics pipeline), which starts at its default.
+        self.candidates = self.pipeline.launch_candidates(h, w, self.device)
+        self.config = dict.fromkeys(self.candidates[0][1])
         self.tuning: dict | None = None
         self.tune_cache_path = tune_cache_path or default_tune_cache_path()
 
@@ -143,33 +137,6 @@ class DeviceStreamRunner:
         """
         out = self.run_passes(r)
         return int(out[::97, ::3, ::64].sum(dtype=torch.int64))
-
-    def block_candidates(self) -> list[int]:
-        """``rows_per_block`` values to sweep: small tiles, then whole planes."""
-        h = self.shape[0]
-        return sorted({min(k, h) for k in ROWS_PER_BLOCK_CANDIDATES} | {h})
-
-    def tile_candidates(self) -> list[tuple[int, int]]:
-        """K4/K5 tile shapes to sweep, every row count by every column count."""
-        return [(th, tw) for th in TILE_ROWS_CANDIDATES for tw in TILE_COLS_CANDIDATES]
-
-    def _configs(self) -> list[tuple[str, dict, str | None]]:
-        """(label, config, reason to skip or None) for each autotune candidate."""
-        if self.global_stats:
-            # The family has no launch knob: one config, named after its route.
-            k8_k10 = self.device.type == "cuda" and self.pipeline.name == "equalize"
-            return [("cuda_k8_k10" if k8_k10 else "torch_ops", {}, None)]
-        if not self.tiled:
-            return [(f"cuda_rpb{rpb}", {"rows_per_block": rpb}, None)
-                    for rpb in self.block_candidates()]
-        out = []
-        for tile in self.tile_candidates():
-            need = max(cuda_tiled.shared_bytes(nm, tile) for nm in self.pipeline.filters)
-            why = (None if need <= plib.SHARED_BYTES_PER_BLOCK else
-                   f"needs {need} B of shared memory a block, over "
-                   f"{plib.SHARED_BYTES_PER_BLOCK}")
-            out.append((f"cuda_tile{tile[0]}x{tile[1]}", {"tile": tile}, why))
-        return out
 
     # ---- the autotune's winner on disk ----
 
@@ -198,7 +165,7 @@ class DeviceStreamRunner:
         ent = self._read_cache().get(self._tune_key())
         if not isinstance(ent, dict):
             return None
-        runnable = {label: cfg for label, cfg, why in self._configs() if why is None}
+        runnable = {label: cfg for label, cfg, why in self.candidates if why is None}
         if ent.get("label") not in runnable:
             return None
         try:
@@ -263,7 +230,7 @@ class DeviceStreamRunner:
         timings: dict[str, float] = {}
         skipped: dict[str, str] = {}
         best_label, best_config, best_t = None, None, float("inf")
-        for label, config, why in self._configs():
+        for label, config, why in self.candidates:
             if why is not None:
                 skipped[label] = why
                 continue

@@ -31,9 +31,8 @@ import jax.numpy as jnp
 
 from hipe_tpu.ops import blur as jblur
 from hipe_tpu.ops import pallas_blur
-from hipe_tpu_torch.models import pipelines as tplib
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops import cuda_blur
+from hipe_tpu_torch.ops import planar
 from hipe_tpu_torch.ops import reference as tref
 
 RUN = 8  # bytes a lane owns: lanes::kRun
@@ -312,16 +311,28 @@ def test_planar_form_matches_blur_kernels(r, h_pad):
         np.testing.assert_array_equal(got, oracle if h_pad else oracle[:, r:x.shape[1] - r])
 
 
-def test_k1_takes_no_shared_memory_so_no_width_routes_away():
-    """The row sums live in registers: shared_bytes and the router's mirror
-    are 0, so a single gaussian stays on K1 (and its rows entry) at any
-    width; K2's and K3's padded buffers still route wide chains tiled."""
-    for h, lanes, r in ((256, 256, 1), (256, 768, 1), (2250, 12000, 4), (1, 1, 2)):
-        for rpb in (None, 1, 16, 256, 2250):
-            assert cuda_blur.shared_bytes(h, lanes, r, True, rpb) == 0
+def _routed(monkeypatch, names, h, w, **kw):
+    """The kernels :func:`planar.filter_planar` sends (1, H, W) planes of
+    ``names`` to off the CPU (meta tensors: shapes only)."""
+    seen = []
+    for kernel, name in (("K1", "gaussian_blur_planar_cuda"), ("K2", "filter_chain_planar_cuda"),
+                         ("K3", "rank_chain_planar_cuda"),
+                         ("K4/K5", "filter_chain_planar_tiled_cuda")):
+        monkeypatch.setattr(planar, name, lambda *a, _k=kernel, **k: seen.append(_k))
+    planar.filter_planar(torch.empty((1, h, w), dtype=torch.uint8, device="meta"), names, **kw)
+    return seen
+
+
+def test_k1_takes_no_shared_memory_so_no_width_routes_away(monkeypatch):
+    """The row sums live in registers: the router's mirror is 0, so a single
+    gaussian stays on K1 at any width and band height; K2's and K3's padded
+    buffers still route wide chains tiled."""
     for name in tblur.GAUSSIANS:
-        assert tplib.fused_shared_bytes(32, 4000, (name,)) == 0
-        assert not tplib.routes_tiled(2250, 4000, (name,))
-    blur3 = tplib.get("blur3")
-    assert blur3.rows_entry_fits(2250, 4000, 3, rows_per_block=2250)
-    assert tplib.routes_tiled(2250, 4000, ("gaussian3", "sharpen", "edge"))
+        assert planar.fused_shared_bytes(32, 4000, (name,)) == 0
+        for h, w in ((256, 256), (256, 768), (2250, 4000), (2250, 12000), (1, 1)):
+            for rpb in (None, 1, 16, 256, 2250):
+                assert _routed(monkeypatch, (name,), h, w, rows_per_block=rpb) == ["K1"]
+    chain = ("gaussian3", "sharpen", "edge")
+    assert _routed(monkeypatch, chain, 2250, 4000) == ["K4/K5"]
+    assert _routed(monkeypatch, chain, 256, 256) == ["K2"]
+    assert _routed(monkeypatch, ("median", "gaussian3"), 256, 256) == ["K3"]

@@ -21,7 +21,7 @@ from hipe_tpu.ops import blur as jblur
 from hipe_tpu.ops import pallas_blur
 from hipe_tpu_torch.ops import blur as tblur
 from hipe_tpu_torch.ops import reference as tref
-from hipe_tpu_torch.ops import cuda_chain
+from hipe_tpu_torch.ops import chain_program
 from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
 
 LUT_NAME = "torchport_dim"
@@ -159,11 +159,11 @@ def test_lut_registry_errors_match_hipe_tpu():
 
 
 def test_stage_program_encoding():
-    # The op codes are K2's enum Op (csrc/chain_planar.cu); a LUT used twice
+    # The op codes are enum Op of csrc/chain_stages.cuh; a LUT used twice
     # is one table, indexed in order of first use.
     names = ("posterize4", LUT_NAME, "gaussian9", "edge", LUT_NAME, "posterize1",
              "sharpen", "invert", "solarize", "gaussian3", "posterize8")
-    program, tables = cuda_chain.encode_program(names)
+    program, tables = chain_program.encode_band_program(names)
     assert program == [5, 0xF0, 6, 0, 0, 4, 2, 0, 6, 0, 5, 0x80,
                        1, 0, 3, 0, 4, 0, 0, 1, 5, 0xFF]
     assert len(tables) == 1

@@ -26,8 +26,9 @@ import jax.numpy as jnp
 from hipe_tpu.ops import blur as jblur
 from hipe_tpu_torch.models import pipelines as tplib
 from hipe_tpu_torch.ops import blur as tblur
+from hipe_tpu_torch.ops import planar
 
-RUN = tplib.LANE_RUN  # output bytes a thread computes at once
+RUN = planar.RUN  # output bytes a thread computes at once
 INPUTS = {
     "random": lambda: np.random.default_rng(11).integers(0, 256, (3, 17, 24), dtype=np.uint8),
     "random_wide": lambda: np.random.default_rng(12).integers(0, 256, (2, 9, 40), dtype=np.uint8),
@@ -349,23 +350,23 @@ def test_pads_are_the_clamp_of_the_row(w):
 
 @pytest.mark.parametrize("w", [1, 7, 8, 9, 40, 255, 256, 257, 1000, 3032, 4000])
 def test_lane_pitch_holds_the_padded_row(w):
-    pitch = tplib.lane_pitch(w)
+    pitch = planar.lane_pitch(w)
     need = 16 + -(-w // RUN) * RUN + 4  # lead, the runs, the right pad
     assert pitch % 16 == 0 and need <= pitch < need + 16
 
 
 def test_fused_shared_bytes_describes_the_padded_layout():
     chain = ("gaussian3", "sharpen", "edge")
-    assert tplib.lane_pitch(256) == 288
-    assert tplib.fused_shared_bytes(64, 256, chain) == 2 * (64 + 6) * 288
-    assert tplib.fused_shared_bytes(128, 256, ("median", "gaussian3")) == 2 * 132 * 288
+    assert planar.lane_pitch(256) == 288
+    assert planar.fused_shared_bytes(64, 256, chain) == 2 * (64 + 6) * 288
+    assert planar.fused_shared_bytes(128, 256, ("median", "gaussian3")) == 2 * 132 * 288
     # A LUT stage adds its 256-byte table once, however often it recurs.
     name = "torchport_forms_dim"
     tblur.register_lut_filter(name, tblur.brightness_lut(0.7))
-    assert (tplib.fused_shared_bytes(32, 256, (name, "gaussian3", name))
+    assert (planar.fused_shared_bytes(32, 256, (name, "gaussian3", name))
             == 2 * (32 + 2) * 288 + 256)
     # A single gaussian is K1's, which keeps its row sums in registers.
-    assert tplib.fused_shared_bytes(32, 256, ("gaussian3",)) == 0
+    assert planar.fused_shared_bytes(32, 256, ("gaussian3",)) == 0
 
 
 @pytest.mark.parametrize("name", sorted(n for n, p in tplib.PIPELINES.items()

@@ -212,7 +212,7 @@ def test_tile_walk_on_the_benchmark_planes(h_pad):
     """A 240x320 plane, the benchmark's, at the autotune's rows_per_block and
     the whole plane; the walking stages' bands there are 1 to 12 rows long,
     among them 1, 2 and 3, where the rotation stops in its first turn."""
-    from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+    from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
 
     names = ("gaussian3", "sharpen", "edge")
     x = _planes(1, 240, 320, seed=240)

@@ -12,7 +12,7 @@ import torch
 
 from hipe_tpu_torch.ops.blur import gaussian_blur_planar
 from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, out_rows
-from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
 
 pytestmark = pytest.mark.cuda
 
@@ -56,16 +56,15 @@ def test_k1_refuses_too_much_shared_memory(cuda):
     """K1 takes no shared memory, so a whole-plane band of a 512-wide plane
     (258*512*2 B of row sums in the first design, over 227 KB) launches; what
     the kernel entry refuses (a radius outside 1-4, no rows a band) it
-    refuses without a launch and leaves no error behind."""
-    from hipe_tpu_torch.ops.cuda_blur import _kernel_lib
-
+    refuses without a launch and leaves no error behind: its launcher raises
+    with the caller's text and the code, and counts nothing."""
     x = torch.zeros((1, 256, 512), dtype=torch.uint8, device=cuda)
     assert torch.equal(gaussian_blur_planar_cuda(x, 1, rows_per_block=256), x)
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream().cuda_stream
-    lib = _kernel_lib()
+    before = gaussian_blur_planar_cuda.launches
     for radius, rpb in ((5, 16), (1, 0)):
-        rc = lib.hipe_blur_planar_u8(x.data_ptr(), out.data_ptr(), 1, 256, 512, radius, 1,
-                                     rpb, stream)
-        assert rc != 0
+        with pytest.raises(RuntimeError, match=r"^K1 refused: .+ \(cudaError [1-9]\d*\)$"):
+            gaussian_blur_planar_cuda.launch(x, lambda: "K1 refused", x.data_ptr(),
+                                             out.data_ptr(), 1, 256, 512, radius, 1, rpb)
+    assert gaussian_blur_planar_cuda.launches == before
     assert torch.equal(gaussian_blur_planar_cuda(x, 1), torch.zeros_like(x))

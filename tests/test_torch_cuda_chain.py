@@ -12,7 +12,7 @@ import torch
 
 from hipe_tpu_torch.ops import blur as tblur
 from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
-from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
 
 pytestmark = pytest.mark.cuda
 

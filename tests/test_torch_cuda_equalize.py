@@ -201,8 +201,9 @@ def test_two_chained_stream_passes(cuda):
     r = DeviceStreamRunner("equalize", num_images=40, image=image, device=cuda)
     cpu = DeviceStreamRunner("equalize", num_images=40, image=image, device="cpu")
     # The one autotune config is named after the route each takes.
-    assert [c[0] for c in r._configs()] == ["cuda_k8_k10"]
-    assert [c[0] for c in cpu._configs()] == ["torch_ops"]
+    assert r.pipeline.launch_candidates(48, 64, cuda) == [("cuda_k8_k10", {}, None)]
+    assert cpu.pipeline.launch_candidates(48, 64, "cpu") == [("torch_ops", {}, None)]
+    assert r.candidates == r.pipeline.launch_candidates(48, 64, cuda)
     assert r.verify_max_abs_err() == 0
     before = _launches()
     got = r.run_passes(2)

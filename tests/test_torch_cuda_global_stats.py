@@ -21,6 +21,7 @@ from hipe_tpu_torch.io_.jpeg import quality_tables
 from hipe_tpu_torch.models import pipelines as plib
 from hipe_tpu_torch.ops import cuda_dct, cuda_equalize, cuda_rank_chain, cuda_tiled
 from hipe_tpu_torch.ops import jpeg_encode as je
+from hipe_tpu_torch.ops import planar
 from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
 from hipe_tpu_torch.runtime.engine import Engine, EngineConfig
 from hipe_tpu_torch.runtime.serve import ServingPipeline
@@ -97,7 +98,7 @@ def test_ops_on_the_card_equal_the_cpu(cuda, key, c):
 
 def test_sharpness_of_wide_planes_launches_k5(cuda):
     p = _pipe("sharpness")
-    assert plib.routes_tiled(40, 4000, ("pil_smooth",))
+    assert planar.routes_tiled(40, 4000, ("pil_smooth",))
     x = _images(1, 40, 4000, 3, seed=1)[0].permute(2, 0, 1).contiguous()
     k3, k5 = _launches()
     got = p.apply_planar(x.to(cuda))
@@ -113,8 +114,8 @@ def test_chunked_on_the_card_equals_one_call(cuda, monkeypatch, key):
     x = _images(7, 33, 40, 3, seed=3).permute(0, 3, 1, 2).reshape(21, 33, 40).to(cuda)
     whole = p.apply_planar(x)
     # Two images a chunk on the card: four chunks, the last of one image.
-    per_plane = plib.STATS_CARD_PLANE_TEMP_BYTES.get(p.name,
-                                                     33 * 40 * plib.STATS_TEMP_BYTES[p.name])
+    card = plib.GlobalStatsPipeline.CARD_ROUTES.get(p.name)
+    per_plane = card[1] if card else 33 * 40 * plib.STATS_TEMP_BYTES[p.name]
     monkeypatch.setattr(plib, "STATS_CHUNK_BYTES", 2 * 3 * per_plane + 1)
     assert plib.global_stats_chunk(33, 40, 3, p.name, cuda) == 6
     assert torch.equal(p.apply_planar(x), whole)

@@ -12,8 +12,9 @@ import torch
 
 from hipe_tpu_torch.ops import blur as tblur
 from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
+from hipe_tpu_torch.ops.planar import filter_planar
 from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
-from hipe_tpu_torch.runtime.device_stream import ROWS_PER_BLOCK_CANDIDATES
+from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
 
 pytestmark = pytest.mark.cuda
 
@@ -81,7 +82,7 @@ def test_k3_matches_plain(cuda, names, h_pad, shape, offset):
     k2_before = filter_chain_planar_cuda.launches
     rpbs = sorted({*ROWS_PER_BLOCK_CANDIDATES, ho})
     for rpb in rpbs:
-        got = filter_chain_planar_cuda(x, names, h_pad=h_pad, rows_per_block=rpb, out=out)
+        got = filter_planar(x, names, h_pad=h_pad, rows_per_block=rpb, out=out)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"rows_per_block={rpb}"
     assert rank_chain_planar_cuda.launches == before + len(rpbs)

@@ -100,14 +100,14 @@ def test_apply_rows_and_nhwc_match_plain(cuda, name, h_pad, c):
 
 def test_wide_rows_relayout_to_the_tiled_route(cuda):
     # 40 x 3500 RGB rows: 3500-wide planes of the chain route tiled
-    # (tplib.routes_tiled), so it relayouts to planar and runs K4 and K5;
+    # (Pipeline.routes_tiled), so it relayouts to planar and runs K4 and K5;
     # K1's rows entry takes no shared memory, so blur3 stays on it.
     from hipe_tpu_torch.ops.cuda_tiled import gaussian_blur_planar_tiled_cuda
 
     x = _rows(cuda, (1, 40, 3500), 3, seed=7)
     for name, k1, k4, k5 in (("blur3", 1, 0, 0), ("chain", 0, 1, 2)):
         pipe = tplib.get(name)
-        assert pipe.rows_entry_fits(40, 3500, 3) == bool(k1)
+        assert pipe.single_gaussian == bool(k1)
         assert pipe.routes_tiled(40, 3500) == (not k1)
         want = tblur.filter_chain_rows(x, 3, pipe.filters)
         before = (gaussian_blur_rows_cuda.launches, gaussian_blur_planar_tiled_cuda.launches,

@@ -174,10 +174,10 @@ def test_tiled_kernels_refuse_what_they_do_not_take(cuda):
 def test_runner_sweeps_tiles_on_large_frames(cuda):
     image = np.random.default_rng(0).integers(0, 256, (64, 3500, 3), dtype=np.uint8)
     runner = DeviceStreamRunner("chain", num_images=2, image=image, device=cuda)
-    assert runner.tiled
+    assert runner.pipeline.routes_tiled(*runner.shape[:2])
     timings = runner.autotune(passes=1, reps=1)
     assert timings and all(label.startswith("cuda_tile") for label in timings)
-    assert runner.config["tile"] in runner.tile_candidates()
+    assert runner.config["tile"] in [c["tile"] for _, c, _ in runner.candidates]
     assert runner.verify_max_abs_err() == 0
     want = runner.stream
     for _ in range(2):

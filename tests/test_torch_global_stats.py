@@ -139,7 +139,8 @@ def test_no_radius_no_halo_mode_and_no_unknown_op():
         tplib.get("contrast").apply_planar(torch.zeros((4, 4, 4), dtype=torch.uint8))
     with pytest.raises(KeyError, match="unknown global-statistics op"):
         tplib.GlobalStatsPipeline("nope")
-    assert not p.routes_tiled(4000, 4000)
+    # No launch knob of its own at any size: one config, named after the route.
+    assert p.launch_candidates(4000, 4000, "cpu") == [("torch_ops", {}, None)]
 
 
 def test_package_exports_the_pipeline():
@@ -156,7 +157,8 @@ def test_stream_runner_matches_hipe_tpu(key):
     tp, jp = _pipes(key)
     image = _images(3, 20, 23, 3, seed=4)[2]  # few levels: modes, a narrow histogram
     r = DeviceStreamRunner(tp, num_images=3, image=image, device="cpu")
-    assert r.config == {} and [c[0] for c in r._configs()] == ["torch_ops"]
+    assert r.config == {} and r.candidates == [("torch_ops", {}, None)]
+    assert tp.launch_candidates(20, 23, "cpu") == r.candidates
     assert r._tune_key().endswith("|none") and tp.params in r._tune_key()
     assert r.verify_max_abs_err() == 0
     planes = jnp.asarray(r.stream.numpy())

@@ -23,7 +23,7 @@ from hipe_tpu.ops import pallas_blur
 from hipe_tpu.runtime.device_stream import DeviceStreamRunner as JaxRunner
 from hipe_tpu.utils.images import checker_image as jax_checker_image
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops import cuda_chain, cuda_rank_chain
+from hipe_tpu_torch.ops import chain_program, planar
 from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda
 from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
 from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
@@ -86,7 +86,7 @@ def _chain_cases():
 def test_chain_wrapper_matches_chain_kernel(names, h_pad, int16_ranks):
     # H = 19: hipe_tpu would send even a band chain to _chain_kernel here.
     x = _planes((3, 19, 23), seed=len(names) + 7)
-    got = filter_chain_planar_cuda(torch.from_numpy(x), names, h_pad=h_pad).numpy()
+    got = rank_chain_planar_cuda(torch.from_numpy(x), names, h_pad=h_pad).numpy()
     want = pallas_blur.filter_chain_planar_pallas(
         jnp.asarray(x), names, h_pad=h_pad, interpret=True, int16_ranks=int16_ranks)
     np.testing.assert_array_equal(got, np.asarray(want))
@@ -182,7 +182,7 @@ def test_registration_is_idempotent_in_both_packages():
 def test_k3_program_and_tap_table_encoding():
     names = ("median", KERNEL_NAME, "posterize4", RANK_NAME, "pil_emboss", "erode",
              KERNEL_NAME, "gaussian9", "dilate", "median9", LUT_NAME, "edge", LUT_NAME)
-    program, tables, taps = cuda_rank_chain.encode_program(names)
+    program, tables, taps = chain_program.encode_program(names)
     # Triples (op, arg, size); op codes are enum Op of csrc/chain_stages.cuh.
     assert program == [7, 0, 0, 11, 0, 5, 5, 0xF0, 0, 10, 6, 5, 11, 27, 3, 8, 0, 0,
                        11, 0, 5, 0, 4, 0, 9, 0, 0, 10, 40, 9, 6, 0, 0, 2, 0, 0,
@@ -204,16 +204,16 @@ def test_routing_follows_hipe_tpu_mxu_rule(names, monkeypatch):
     # hipe_tpu's mxu_ok (pallas_blur.py:975) without its H % 8 clause.
     mxu_ok = all(nm.startswith("gaussian") or nm in ("sharpen", "edge")
                  or nm in jblur.POINT_STAGES for nm in names)
-    assert cuda_chain.is_band_chain(names) == mxu_ok
+    assert chain_program.is_band_chain(names) == mxu_ok
     calls = []
 
     def spy(x, names, **kw):
         calls.append(names)
         return rank_chain_planar_cuda(x, names, **kw)
 
-    monkeypatch.setattr(cuda_rank_chain, "rank_chain_planar_cuda", spy)
+    monkeypatch.setattr(planar, "rank_chain_planar_cuda", spy)
     x = torch.from_numpy(_planes((2, 24, 17), seed=9))
-    got = filter_chain_planar_cuda(x, names)
+    got = planar.filter_planar(x, names)
     assert calls == ([] if mxu_ok else [names])
     assert torch.equal(got, tblur.filter_chain(x, names, h_axis=-2, w_axis=-1))
 
@@ -225,8 +225,9 @@ def test_wrapper_on_cpu_launches_nothing_and_rejects_bad_calls():
     out = torch.empty_like(x)
     assert rank_chain_planar_cuda(x, names, out=out) is out
     np.testing.assert_array_equal(out.numpy(), want.numpy())
-    assert torch.equal(filter_chain_planar_cuda(x, names, h_pad=False),
-                       want[:, 2:-2])
+    assert torch.equal(rank_chain_planar_cuda(x, names, h_pad=False), want[:, 2:-2])
+    with pytest.raises(ValueError, match="band and point"):
+        filter_chain_planar_cuda(x, names)
     assert rank_chain_planar_cuda.launches == 0
     assert filter_chain_planar_cuda.launches == 0
     with pytest.raises(KeyError, match="unknown filter stage"):

@@ -21,8 +21,8 @@ from hipe_tpu.ops import blur as jblur
 from hipe_tpu.ops import pallas_blur
 from hipe_tpu_torch.models import pipelines as tplib
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops.cuda_blur import (gaussian_blur_nhwc_cuda, gaussian_blur_rows_cuda,
-                                          shared_bytes)
+from hipe_tpu_torch.ops import planar
+from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_nhwc_cuda, gaussian_blur_rows_cuda
 from hipe_tpu_torch.ops.cuda_chain import filter_chain_rows_cuda
 
 LUT_NAME = "torchport_rows_dim"
@@ -133,18 +133,38 @@ def test_apply_rows_out_and_nhwc_blur_wrapper():
     np.testing.assert_array_equal(gaussian_blur_nhwc_cuda(nhwc, 2).numpy(), want_np)
 
 
-def test_rows_entry_fits_shared_memory():
-    blur3, chain = tplib.get("blur3"), tplib.get("chain")
+def _kernels_of_rows(monkeypatch, pipe, h, w, **kw):
+    """The wrappers ``pipe.apply_rows`` calls for (1, H, W*3) rows off the
+    CPU (meta tensors: shapes only), by the names of their kernels."""
+    seen = []
+
+    def spy(kernel):
+        def wrapper(x, *args, **kwargs):
+            seen.append(kernel)
+            return torch.empty_like(x)
+        return wrapper
+
+    monkeypatch.setattr(tplib, "gaussian_blur_rows_cuda", spy("K1 rows"))
+    for kernel, name in (("K1", "gaussian_blur_planar_cuda"), ("K2", "filter_chain_planar_cuda"),
+                         ("K3", "rank_chain_planar_cuda"),
+                         ("K4/K5", "filter_chain_planar_tiled_cuda")):
+        monkeypatch.setattr(planar, name, spy(kernel))
+    pipe.apply_rows(torch.empty((1, h, w * 3), dtype=torch.uint8, device="meta"), 3, **kw)
+    return seen
+
+
+def test_rows_entry_fits_shared_memory(monkeypatch):
+    blur3 = tplib.get("blur3")
     # K1's rows entry keeps its row sums in registers: the 5000-image
-    # stream's rows, 256 x 768 lanes, fit at every band height, whole planes
-    # too, and so do 4000-pixel RGB rows.
-    assert blur3.rows_entry_fits(256, 256, 3)
-    assert blur3.rows_entry_fits(256, 256, 3, rows_per_block=128)
-    assert blur3.rows_entry_fits(256, 256, 3, rows_per_block=256)
-    assert shared_bytes(256, 768, 1, True, 128) == 0
-    assert blur3.rows_entry_fits(2250, 4000, 3)
-    # Only a single gaussian has a rows entry on the card's route.
-    assert not chain.rows_entry_fits(32, 32, 3)
+    # stream's rows, 256 x 768 lanes, take it at every band height, whole
+    # planes too, and so do 4000-pixel RGB rows.
+    for rpb in (None, 128, 256):
+        assert _kernels_of_rows(monkeypatch, blur3, 256, 256, rows_per_block=rpb) == ["K1 rows"]
+    assert _kernels_of_rows(monkeypatch, blur3, 2250, 4000) == ["K1 rows"]
+    # Only a single gaussian has a rows entry on the card's route; a chain
+    # relayouts to planar, where the route sends it to K2 or K3.
+    assert _kernels_of_rows(monkeypatch, tplib.get("chain"), 32, 32) == ["K2"]
+    assert _kernels_of_rows(monkeypatch, tplib.get("denoise"), 32, 32) == ["K3"]
 
 
 def test_rows_wrappers_on_cpu_launch_nothing_and_check_their_arguments():

@@ -389,7 +389,7 @@ def _script(monkeypatch, runner, times):
 
 def test_tune_cache_stores_the_winner_and_hits(tmp_path, monkeypatch):
     r = _runner(tmp_path)
-    labels = [lab for lab, _, why in r._configs() if why is None]
+    labels = [lab for lab, _, why in r.candidates if why is None]
     seen = _script(monkeypatch, r, lambda lab: 1e-3 if lab == "cuda_rpb16" else 2e-3)
     r.autotune()
     assert seen == labels and r.tuning["chosen"] == "cuda_rpb16"
@@ -415,7 +415,7 @@ def test_tune_cache_sweeps_again_on_regression_or_failure(tmp_path, monkeypatch,
     _script(monkeypatch, r, lambda lab: 1e-3 if lab == "cuda_rpb16" else 2e-3)
     r.autotune()
     r2 = _runner(tmp_path)
-    n = len([1 for _, _, why in r2._configs() if why is None])
+    n = len([1 for _, _, why in r2.candidates if why is None])
     calls = iter([fresh] + [3e-3] * (n - 1) + [0.5e-3])
     seen = _script(monkeypatch, r2, lambda lab: next(calls))
     r2.autotune()
@@ -433,11 +433,11 @@ def test_retune_ignores_the_stored_winner(tmp_path, monkeypatch):
     r2 = _runner(tmp_path)
     seen = _script(monkeypatch, r2, lambda lab: 1e-3)
     r2.autotune(retune=True)
-    assert len(seen) == len(r2._configs()) and r2.tuning["cache_hit"] is False
+    assert len(seen) == len(r2.candidates) and r2.tuning["cache_hit"] is False
     r3 = _runner(tmp_path, "chain")  # another key: no hit
     seen = _script(monkeypatch, r3, lambda lab: 1e-3)
     r3.autotune()
-    assert len(seen) == len(r3._configs())
+    assert len(seen) == len(r3.candidates)
 
 
 @pytest.mark.parametrize("content", ["{not json", '{"version": 0, "entries": {}}',
@@ -447,7 +447,7 @@ def test_a_broken_tune_cache_is_ignored(tmp_path, monkeypatch, content):
     r = _runner(tmp_path)
     seen = _script(monkeypatch, r, lambda lab: 1e-3)
     r.autotune()
-    assert len(seen) == len(r._configs()) and r.tuning["cache_hit"] is False
+    assert len(seen) == len(r.candidates) and r.tuning["cache_hit"] is False
 
 
 def test_tune_cache_default_lives_under_build():

@@ -23,7 +23,7 @@ from hipe_tpu.ops import pallas_blur
 from hipe_tpu.runtime.device_stream import DeviceStreamRunner as JaxRunner
 from hipe_tpu_torch.models import pipelines as tplib
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops import cuda_tiled
+from hipe_tpu_torch.ops import cuda_tiled, planar
 from hipe_tpu_torch.ops.cuda_tiled import (filter_chain_planar_tiled_cuda,
                                            filter_stage_planar_tiled_cuda,
                                            gaussian_blur_planar_tiled_cuda)
@@ -93,7 +93,7 @@ def test_tiled_chain_matches_hipe_tpu(names, h_pad):
 
 
 def test_routes_tiled_follows_shared_memory():
-    assert tplib.SHARED_BYTES_PER_BLOCK == 227 * 1024
+    assert planar.SHARED_BYTES_PER_BLOCK == 227 * 1024
     for name in ("blur3", "chain", "denoise"):
         pipe = tplib.get(name)
         # The reference's 4000x2250 frame: K2's and K3's 32-row tile needs
@@ -102,24 +102,24 @@ def test_routes_tiled_follows_shared_memory():
         assert pipe.routes_tiled(2250, 4000) == (name != "blur3")
         assert not pipe.routes_tiled(256, 256)
         assert not pipe.routes_tiled(1080, 1920)
-    assert tplib.fused_shared_bytes(32, 4000, ("gaussian3",)) == 0
+    assert planar.fused_shared_bytes(32, 4000, ("gaussian3",)) == 0
     # K2's padded rows: 4000 + 20 bytes, rounded up to 16.
-    assert tplib.fused_shared_bytes(32, 4000, ("gaussian3", "sharpen", "edge")) == 2 * 38 * 4032
+    assert planar.fused_shared_bytes(32, 4000, ("gaussian3", "sharpen", "edge")) == 2 * 38 * 4032
     # The widest plane each kernel's 32-row tile still fits: K1 has none.
-    assert not tplib.routes_tiled(32, 3419, ("gaussian3",))
-    assert not tplib.routes_tiled(32, 1 << 20, ("gaussian3",))
-    assert not tplib.routes_tiled(32, 3032, ("gaussian3", "sharpen", "edge"))
-    assert tplib.routes_tiled(32, 3033, ("gaussian3", "sharpen", "edge"))
+    assert not planar.routes_tiled(32, 3419, ("gaussian3",))
+    assert not planar.routes_tiled(32, 1 << 20, ("gaussian3",))
+    assert not planar.routes_tiled(32, 3032, ("gaussian3", "sharpen", "edge"))
+    assert planar.routes_tiled(32, 3033, ("gaussian3", "sharpen", "edge"))
     # A plane shorter than the tile is judged at its own height.
-    assert not tplib.routes_tiled(4, 9000, ("edge",))
+    assert not planar.routes_tiled(4, 9000, ("edge",))
 
 
 def test_oversized_chain_routes_to_tiled_kernels(monkeypatch):
     """apply_planar on planes too wide for K2 takes the tiled route, both
     modes, with hipe_tpu's integers."""
     calls = []
-    real = tplib.filter_chain_planar_tiled_cuda
-    monkeypatch.setattr(tplib, "filter_chain_planar_tiled_cuda",
+    real = planar.filter_chain_planar_tiled_cuda
+    monkeypatch.setattr(planar, "filter_chain_planar_tiled_cuda",
                         lambda *a, **k: calls.append(k) or real(*a, **k))
     x = _planes(1, 40, 3500, seed=9)
     pipe = tplib.PIPELINES["chain"]
@@ -140,16 +140,16 @@ def test_oversized_chain_routes_to_tiled_kernels(monkeypatch):
 
 def test_shared_bytes_and_tile_checks():
     # TH + 2r window rows of the tile's columns and 16 bytes on each side.
-    assert cuda_tiled.shared_bytes("gaussian3", (16, 512)) == 18 * 544
-    assert cuda_tiled.shared_bytes("median9", (16, 512)) == 24 * 544
-    assert cuda_tiled.shared_bytes("invert", None) == 32 * 288
+    assert planar.tiled_shared_bytes("gaussian3", (16, 512)) == 18 * 544
+    assert planar.tiled_shared_bytes("median9", (16, 512)) == 24 * 544
+    assert planar.tiled_shared_bytes("invert", None) == 32 * 288
     # A width that is no multiple of 16 takes 24 bytes of pads; TW is
     # rounded up to a run of 8 first.
-    assert cuda_tiled.shared_bytes("edge", (5, 7)) == 7 * 32
-    assert cuda_tiled.shared_bytes("edge", (5, 8)) == 7 * 32
-    assert cuda_tiled.shared_bytes("edge", (5, 9)) == 7 * 48
+    assert planar.tiled_shared_bytes("edge", (5, 7)) == 7 * 32
+    assert planar.tiled_shared_bytes("edge", (5, 8)) == 7 * 32
+    assert planar.tiled_shared_bytes("edge", (5, 9)) == 7 * 48
     # The full-width strip over the 4000-wide frames.
-    assert cuda_tiled.shared_bytes("gaussian3", (32, 4000)) == 34 * 4032
+    assert planar.tiled_shared_bytes("gaussian3", (32, 4000)) == 34 * 4032
     with pytest.raises(ValueError, match="positive"):
         cuda_tiled.check_tile((0, 8))
 
@@ -183,8 +183,8 @@ def test_runner_takes_the_tiled_route_on_wide_frames():
     jr = JaxRunner("chain", num_images=2, image=image, use_pallas=False)
     tr = DeviceStreamRunner("chain", num_images=2, image=image, device="cpu",
                             stream=np.asarray(jr.stream))
-    assert tr.tiled and tr.config == {"tile": None}
-    labels = [label for label, _, why in tr._configs() if why is None]
+    assert tr.pipeline.routes_tiled(40, 3500) and tr.config == {"tile": None}
+    labels = [label for label, _, why in tr.candidates if why is None]
     assert labels == [f"cuda_tile{th}x{tw}" for th in (8, 16, 32, 64) for tw in (128, 256, 512)]
     import jax
 
@@ -192,4 +192,4 @@ def test_runner_takes_the_tiled_route_on_wide_frames():
     np.testing.assert_array_equal(tr.run_passes(2).numpy(), want)
     assert tr.verify_max_abs_err() == 0
     small = DeviceStreamRunner("chain", num_images=1, image=image[:, :64], device="cpu")
-    assert not small.tiled and small.config == {"rows_per_block": None}
+    assert not small.pipeline.routes_tiled(40, 64) and small.config == {"rows_per_block": None}

@@ -6,7 +6,7 @@ TW output pixels, TW rounded up to a run of 8. A block stages its window:
 plane rows ``[y0 - r, y0 + rows + r)`` clamped into the plane, and in each
 the plane columns ``[c0, c0 + pitch)`` clamped into the plane, ``c0`` the
 tile's first column less 4 rounded down to 16 and ``pitch``
-:func:`hipe_tpu_torch.ops.cuda_tiled.window_pitch`. Then each thread takes
+:func:`hipe_tpu_torch.ops.planar.window_pitch`. Then each thread takes
 runs of 8 outputs and reads every tap at a plain offset into the window:
 gaussian3, sharpen, edge and the median two pixels a 32-bit word in 16-bit
 lanes, all but sharpen walking down a band of rows with the three rows'
@@ -31,9 +31,9 @@ import jax.numpy as jnp
 from hipe_tpu.ops import blur as jblur
 from hipe_tpu.ops import pallas_blur
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops import cuda_tiled
+from hipe_tpu_torch.ops import planar
 
-RUN = cuda_tiled.RUN
+RUN = planar.RUN
 THREADS = 256  # a block's threads (kThreads)
 LUT_NAME = "torchport_tiled_forms_dim"
 RANK_NAME = "torchport_tiled_forms_q"
@@ -96,7 +96,7 @@ def window(plane: torch.Tensor, r: int, y0: int, rows: int, x0: int, tw: int):
     h, w = plane.shape
     c0 = first_column(x0)
     ys = torch.arange(y0 - r, y0 + rows + r).clamp(0, h - 1)
-    cs = torch.arange(c0, c0 + cuda_tiled.window_pitch(tw)).clamp(0, w - 1)
+    cs = torch.arange(c0, c0 + planar.window_pitch(tw)).clamp(0, w - 1)
     return plane[ys][:, cs].to(torch.int64), c0
 
 
@@ -312,7 +312,7 @@ def tiled_forms(x: np.ndarray, name: str, tile: tuple, h_pad: bool) -> np.ndarra
     out_off = (h - ho) // 2
     th, tw = tile
     twr = -(-tw // RUN) * RUN
-    pitch = cuda_tiled.window_pitch(tw)
+    pitch = planar.window_pitch(tw)
     out = torch.full((n, ho, w), -1, dtype=torch.int64)
     planes = torch.from_numpy(x)
     for p in range(n):
@@ -414,7 +414,7 @@ def test_window_pitch_is_the_widest_window_of_a_launch(tw):
     to a run; a multiple of 16, so 16-byte chunks of a plane row whose w is
     a multiple of 16 lie wholly inside the row or wholly in a pad."""
     twr = -(-tw // RUN) * RUN
-    pitch = cuda_tiled.window_pitch(tw)
+    pitch = planar.window_pitch(tw)
     need = max((-(-(x0 + twr + 4) // 16) * 16) - first_column(x0)
                for x0 in range(0, 4 * twr, twr))
     assert pitch == need and pitch % 16 == 0
@@ -430,6 +430,6 @@ def test_shared_bytes_is_the_window(name):
     plane = torch.zeros((40, 600), dtype=torch.uint8)
     for tile in ((16, 512), (5, 7), (32, 4000), (64, 128)):
         win, _ = window(plane, r, 0, tile[0], 0, tile[1])
-        assert cuda_tiled.shared_bytes(name, tile) == win.numel()
+        assert planar.tiled_shared_bytes(name, tile) == win.numel()
     # The autotune skips what shared memory cannot hold (232,448 bytes).
-    assert cuda_tiled.shared_bytes(name, (64, 4000)) == (64 + 2 * r) * 4032
+    assert planar.tiled_shared_bytes(name, (64, 4000)) == (64 + 2 * r) * 4032

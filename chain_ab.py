@@ -31,9 +31,14 @@ strips and at tiles of 128 rows or 1024 columns, keeping the fastest.
 With ``--blur`` each runs its tree's ``chip_smoke.py`` phases 6 (blur3
 over the 5000-image planar stream, K1), 13 (blur3 over the rows stream,
 K1's rows entry), 14 for blur3 (the 100 frames of 4000x2250 on the tree's
-route) and 18 (the codec's paths, the transcode among them), and times at
-fixed knobs: K1 for gaussian5/7/9 over the 5000-image stream, K1's rows
-entry at C = 1 and 4 over the rows stream, blur3 through
+route) and 18 (the codec's paths, the transcode among them) and K1 alone
+over the benchmark's 15000x240x320 stream (phase 6's ``K1 bench
+stream``), times K1's rows entry at C = 3 over 5000 images of 320x240 at
+every ``rows_per_block`` the autotune sweeps beside a ``Tensor.copy_``
+(``chip_smoke.sweep_rows_per_block``; the other tree's ``chip_smoke.py``
+needs both), and times at fixed knobs: K1 for gaussian5/7/9 over the
+5000-image stream, K1's rows entry at C = 1 and 4 over the rows stream,
+blur3 through
 ``Pipeline.apply_rows`` over 100 RGB frames of 4000x2250 (a relayout to
 planar and back on the tiled route, or K1's rows entry), K4 over the
 5000-image stream at every tile its autotune sweeps, and K1, K2, K3, K6 and
@@ -205,7 +210,9 @@ def tiled(cs, card: str, sweep: bool) -> dict:
 
 def blur(cs, card: str) -> dict:
     """The blur paths of the tree's chip_smoke.py (phases 6, 13, 14 for
-    blur3, 18) and K1, K4 and the other kernels at fixed knobs."""
+    blur3, 18), K1 alone over the benchmark's stream, K1's rows entry over
+    320x240 RGB at every rows_per_block, and K1, K4 and the other kernels at
+    fixed knobs."""
     import torch
 
     from hipe_tpu_torch.models.pipelines import get
@@ -224,7 +231,13 @@ def blur(cs, card: str) -> dict:
     codec = cs.phase_codec_main_paths(card)
     res["codec"] = {name: p["ms"] for name, p in codec["paths"].items()}
     res["codec K1 rows"] = codec["split"]["K1 rows"]
+    res["K1 bench stream"] = cs.phase_k1_bench_stream(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, (cs.NUM_IMAGES, 240, 320 * 3), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    out = torch.empty_like(x)
+    res["K1 rows 320x240x3"] = cs.sweep_rows_per_block(
+        lambda rpb: gaussian_blur_rows_cuda(x, 3, 1, rows_per_block=rpb, out=out), x, out)
     x = torch.randint(0, 256, (cs.NUM_IMAGES * cs.CHANNELS, cs.SIDE, cs.SIDE),
                       dtype=torch.uint8, device="cuda", generator=gen)
     out = torch.empty_like(x)

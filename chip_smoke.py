@@ -40,7 +40,11 @@ Phases, one line each:
    throughput sessions), with the launch counts taken over that run alone;
    its bound and the device's idle share (torch.profiler) over 10 passes;
    beside it a ``Tensor.copy_`` of the stream, a yardstick the port never
-   calls.
+   calls. Then K1 alone over the benchmark's 15000x240x320 stream (made by
+   ``torch_bench/gen/photo_like.py``): ms a launch at every
+   ``rows_per_block`` the autotune sweeps, the fastest kept, beside a
+   ``Tensor.copy_`` of that stream, and its output against the plain blur's;
+   its warps and live lanes as the launch lays them out (host arithmetic).
 7. The chain main path (blur->sharpen->edge), the same way, verified
    against the pipeline's plain path.
 8. The denoise main path (median -> gaussian3), the same way.
@@ -219,8 +223,8 @@ PLAIN_CHUNK_PIXELS = 1000 * 256 * 256
 SMALL_SHAPES = ((6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1), (1, 13, 2), (1, 11, 3),
                 (1, 12, 4), (1, 10, 5), (2, 20, 255), (2, 21, 257), (2, 300, 40),
                 (2, 9, 2100))
-# (B, H, W pixels); 255, 257 and 768 pixels span several of K1's 32-run
-# segments at any C.
+# (B, H, W pixels); 255, 257 and 768 pixels are several of K1's warps of 32
+# runs a row at any C; in the others a warp spans images at some C.
 ROWS_SHAPES = ((4, 240, 320), (3, 37, 53), (2, 9, 1), (2, 20, 255), (2, 21, 257),
                (1, 19, 768))
 # K1's rows entry: C = 1-4 (its pairs form where r*C <= 8, the run form
@@ -749,6 +753,54 @@ def phase_main_path(card: str, phase: str, pipeline: str) -> dict:
     return {"launches": counts[kernel], "ms": med["per_pass_s"] * 1e3,
             "plain_ms": plain_ms, "chain_err": chain_err, "bound_ms": bound_ms,
             "bound_by": bound_by, "idle": 1 - busy[1] / busy[0], "copy_ms": copy_ms}
+
+
+def sweep_rows_per_block(launch, x: torch.Tensor, out: torch.Tensor) -> dict:
+    """ms of ``launch(rows_per_block)`` (CUDA events, the mean of PASSES) at
+    each rows_per_block the autotune sweeps, the fastest kept, and of a
+    ``Tensor.copy_`` of ``x`` into ``out`` beside it."""
+    from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
+
+    times = {rpb: cuda_ms(lambda: launch(rpb), reps=PASSES) for rpb in ROWS_PER_BLOCK_CANDIDATES}
+    rpb = min(times, key=times.get)
+    return {"ms": times[rpb], "rows_per_block": rpb,
+            "all": {k: round(v, 4) for k, v in times.items()},
+            "copy_ms": cuda_ms(lambda: out.copy_(x), reps=PASSES)}
+
+
+def phase_k1_bench_stream(card: str) -> dict:
+    """K1 (blur3) alone over the benchmark's (15000, 240, 320) stream: ms a
+    launch at each rows_per_block the autotune sweeps beside a copy_ of the
+    stream (sweep_rows_per_block); its bound by bytes; its output against
+    the plain blur's. The printed lanes are launch_kc's layout worked out
+    on the host, not a reading."""
+    from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda
+
+    planes = bench_stream_planes(seed=6)
+    n, h, w = planes.shape
+    out = torch.empty_like(planes)
+    before = gaussian_blur_planar_cuda.launches
+    res = sweep_rows_per_block(
+        lambda rpb: gaussian_blur_planar_cuda(planes, 1, rows_per_block=rpb, out=out), planes, out)
+    rpb = res["rows_per_block"]
+    err = max_abs_err(gaussian_blur_planar_cuda(planes, 1, rows_per_block=rpb, out=out),
+                      plain_chunked(planes, ("gaussian3",)))
+    launches = gaussian_blur_planar_cuda.launches - before
+    if err:
+        raise AssertionError(f"K1 over the benchmark's stream: max-abs {err} against plain")
+    bound_ms = 2 * planes.numel() / HBM_BYTES_PER_S * 1e3
+    # launch_kc's layout: the stream's runs of 8 bytes, 32 a warp, a band each.
+    runs, bands = n * -(-w // 8), -(-h // min(rpb, h))
+    warps = -(-runs // 32) * bands
+    print(f"[6 K1 bench stream] blur3 alone over {n}x{h}x{w}: rows_per_block {res['all']} ms a "
+          f"launch, chose {rpb}: {res['ms']:.4f} ms, {bound_ms / res['ms']:.2%} of its bound "
+          f"{bound_ms:.4f} ms (bytes); Tensor.copy_ of the stream {res['copy_ms']:.4f} ms "
+          f"({res['ms'] / res['copy_ms']:.3f}x); launch layout (host arithmetic, not measured): "
+          f"{warps} warps, {runs * bands} of {32 * warps} lanes hold a run; max_abs_err {err}; "
+          f"{launches} launches [{card}]", flush=True)
+    del planes, out
+    torch.cuda.empty_cache()
+    return {**res, "shape": [n, h, w], "bound_ms": bound_ms, "launches": launches, "err": err}
 
 
 def check_against(label: str, fn, want: torch.Tensor, what: str) -> int:
@@ -2139,6 +2191,7 @@ def main() -> int:
     k2_err = phase_k2_vs_plain(card)
     k3_err = phase_k3_vs_plain(card)
     blur3 = phase_main_path(card, "6", "blur3")
+    k1_bench = phase_k1_bench_stream(card)
     chain = phase_main_path(card, "7", "chain")
     denoise = phase_main_path(card, "8", "denoise")
     k1_rows_err = phase_rows_vs_plain(
@@ -2187,7 +2240,7 @@ def main() -> int:
         "launches": (blur3["launches"] + rows["launches"] + transcode["counts"]["K1 rows"]
                      + large_blur3["counts"]["K1"] + serving["launches"]["K1 rows"]),
         "max_abs_err": max(k1_err, blur3["chain_err"], k1_rows_err, rows["chain_err"],
-                           codec_err, large_blur3["chain_err"]),
+                           codec_err, large_blur3["chain_err"], k1_bench["err"]),
         "ms": blur3["ms"],
         "plain_ms": blur3["plain_ms"],
         "bound_ms": blur3["bound_ms"],
@@ -2208,6 +2261,9 @@ def main() -> int:
         "large_ms": large_blur3["own"]["K1"]["ms"],
         "large_k4_ms": large_blur3["other_ms"],
         "device_idle": blur3["idle"],
+        # Phase 6: K1 alone over the benchmark's 15000x240x320 stream, beside
+        # its copy_.
+        "bench_stream": k1_bench,
         # Phase 19: K1's rows entry on the engine's CUDA lane, every blur3 run.
         "engine_launches": engine["k1_launches"],
         # Phase 20: K1's rows entry on every serving-option path (in launches).

@@ -23,22 +23,29 @@
 // ~20 instructions a byte) was bound by instruction issue instead, at 4.8x
 // that bound.
 //
-// What the design does about it: a warp owns a band of rows_per_block
-// output rows of one plane and a segment of 32 runs of 8 bytes across it,
-// one run a lane, and walks down the band. No shared memory and no
-// __syncthreads: a block is eight independent warps. Each input row of the
-// band and its 2r halo rows is loaded once, one 64-bit load a lane, 2r+1
-// rows ahead of use in registers. The bytes left and right of a run come
-// from the neighbouring lanes' runs by warp shuffles; only a segment's
-// outer lanes load the words beside it, and at the row's ends they make
-// them from the run's own edge pixel: that is the clamp, so no tap carries
-// one. Each row is summed across once, in 16-bit lanes, two outputs to a
-// 32-bit word (a row sum is at most 255 * 4^r = 65280); the last 2r+1 row
-// sums stay in registers and take turns as the rows above, at and below,
-// with no moves. gaussian3 and gaussian5 sum down in 16-bit lanes too (at
-// most 65280), gaussian7 and gaussian9 in 32-bit lanes. Each run goes out
-// with one 64-bit store. The taps are constants of the code, so a tap of 1
-// costs no multiply.
+// What the design does about it: the stream's runs of 8 bytes are taken in
+// (plane, run) order, and a warp owns 32 consecutive ones, one a lane, and a
+// band of rows_per_block output rows, which it walks down. A warp may so
+// hold the end of one plane's row and the start of the next plane's: every
+// plane has the same rows, so its lanes still walk in lock-step. A warp
+// issues the same instructions whatever its live lanes move, and a row taken
+// 32 runs a warp would leave 24 of every second warp's lanes idle at
+// 320-byte rows (40 runs); taken in (plane, run) order, only the stream's
+// last warp has idle lanes. No shared memory and no __syncthreads: a block
+// is eight independent warps. Each input row of the band and its 2r halo
+// rows is loaded once, one 64-bit load a lane, 2r+1 rows ahead of use in
+// registers. The bytes left and right of a run come from the neighbouring
+// lanes' runs by warp shuffles; only a warp's outer lanes load the words
+// beside it, and a lane whose run is its row's first or last makes them from
+// the run's own edge pixel, wherever it sits in the warp: that is the clamp,
+// so no tap carries one, and no shuffle across a plane's edge is ever used.
+// Each row is summed across once, in 16-bit lanes, two outputs to a 32-bit
+// word (a row sum is at most 255 * 4^r = 65280); the last 2r+1 row sums stay
+// in registers and take turns as the rows above, at and below, with no
+// moves. gaussian3 and gaussian5 sum down in 16-bit lanes too (at most
+// 65280), gaussian7 and gaussian9 in 32-bit lanes. Each run goes out with
+// one 64-bit store. The taps are constants of the code, so a tap of 1 costs
+// no multiply.
 //
 // This is the pairs form. It takes rows whose input and output bases and
 // length are multiples of 8, with C = 1-4 bytes a pixel (known at compile
@@ -99,8 +106,8 @@ __device__ __forceinline__ uint2 load_run(const uint8_t* __restrict__ p) {
 
 // One warp's band and one lane's run in it.
 struct Band {
-  const uint8_t* src;  // the plane's input row 0
-  uint8_t* dst;        // the plane's output row 0
+  const uint8_t* src;  // the lane's plane's input row 0
+  uint8_t* dst;        // its output row 0
   int h;
   int len;      // bytes a row: w * C
   int cs;       // C
@@ -109,9 +116,9 @@ struct Band {
   int rows;     // output rows of the band
   int x;        // first byte of the lane's run
   int keep;     // bytes of the run inside the row (>= 1)
-  bool active;  // the lane holds a run of the row
-  bool left;    // the segment's first lane: no lane holds the run left of it
-  bool right;   // the segment's last lane holding a run: nor the one right of it
+  bool active;  // the lane holds a run: it is not past the stream's last
+  bool left;    // lane 0 or the row's first run: no lane holds the run left of it
+  bool right;   // lane 31 or the row's last run: nor the one right of it
 
   // Input row of window row i (0 .. rows + 2R), clamped into the plane; a
   // plane's offsets fit an int.
@@ -139,9 +146,9 @@ struct Band {
 // The pairs form, for rows whose input and output bases and length are
 // multiples of 8: a row's run and its neighbour runs, r*C <= 8 bytes a side
 // read through kSide words of each neighbour. Every load is one aligned
-// load: a run, and at a segment's ends the neighbour words, which at the
-// row's first and last run are made from the run's own edge pixel instead;
-// and every store is one.
+// load: a run, and at a warp's ends the neighbour words, which at a row's
+// first and last run are made from the run's own edge pixel instead; and
+// every store is one.
 template <int R, int kC>
 struct PairsForm {
   static constexpr bool kVec = true;
@@ -155,8 +162,8 @@ struct PairsForm {
   };
 
   const Band& b;
-  bool load_left;   // a left neighbour to load: the segment's first lane, not at the row's start
-  bool load_right;  // a right one: the segment's last lane, not at the row's end
+  bool load_left;   // a left neighbour to load: lane 0, not at the row's start
+  bool load_right;  // a right one: lane 31, not at the row's end
 
   __device__ __forceinline__ explicit PairsForm(const Band& band)
       : b(band),
@@ -212,8 +219,8 @@ struct PairsForm {
   }
 
   // The row sum across: the neighbours' edge words by shuffle, or at a
-  // segment's ends from the lane's own loads or its edge pixel; output pair
-  // k (columns o, o + 2) sums the pairs at o + j*C, j = -R .. R.
+  // warp's or a row's ends from the lane's own loads or its edge pixel;
+  // output pair k (columns o, o + 2) sums the pairs at o + j*C, j = -R .. R.
   __device__ __forceinline__ RowSum sum(const Raw& r) const {
     const uint32_t own[2] = {r.own.x, r.own.y};
     uint32_t wd[2 * kSide + 2];
@@ -354,41 +361,55 @@ __device__ __forceinline__ void walk(const Form& f, const Band& b) {
 template <int R, int kC>
 constexpr bool kHasPairs = kC > 0 && kC <= 4 && R * kC <= kRun;
 
-// Warp unit = blockIdx.x * 8 + warp of the block over (plane, band of
-// rows_per_block output rows, segment of 32 runs), the segment fastest.
-// Output row o of a plane reads input rows o + row_off .. o + row_off + 2R,
-// each clamped into the plane: row_off is -R in clamp mode and 0 in valid
-// mode, where the clamp never bites. A row is w pixels of kC interleaved
-// bytes (1: planar; 0: the runtime c, any). The pairs form (kPairs) and the
-// run form are kernels of their own, so each gets the registers it needs.
+// Group g holds runs 32g .. 32g + 31 of the n planes' runs in (plane, run)
+// order, a run a lane; lanes past the stream's last run hold none. Warp unit
+// = blockIdx.x * 8 + warp of the block over (chunk of segs groups, band of
+// rows_per_block output rows, group of the chunk), the group fastest, segs =
+// ceil(runs a row / 32): the warps of a band take about a plane's row side
+// by side, and the next band's follow. Where a row's runs are a multiple of
+// 32, a chunk is a plane and a group a segment of its row. Units past the
+// stream's last group (the last chunk's padding) return. Output row o of a
+// plane reads input rows o + row_off .. o + row_off + 2R, each clamped into
+// the plane: row_off is -R in clamp mode and 0 in valid mode, where the
+// clamp never bites. A row is w pixels of kC interleaved bytes (1: planar;
+// 0: the runtime c, any). The pairs form (kPairs) and the run form are
+// kernels of their own, so each gets the registers it needs.
 template <int R, int kC, bool kPairs>
 __global__ void __launch_bounds__(kThreads, 1)
     blur_u8_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int h, int w,
                    int c, int ho, int row_off, int rows_per_block, int tiles, int segs,
-                   int units) {
+                   int n, int units) {
   const int unit = static_cast<int>(blockIdx.x) * kWarpsPerBlock +
                    static_cast<int>(threadIdx.x) / kWarp;
   if (unit >= units) return;  // the whole warp
   const int lane = static_cast<int>(threadIdx.x) % kWarp;
-  const int seg = unit % segs;
   const int band = unit / segs % tiles;
-  const int plane = unit / segs / tiles;
+  const int group = unit / segs / tiles * segs + unit % segs;  // <= unit
   Band b;
   b.cs = kC > 0 ? kC : c;
   b.len = w * b.cs;
   b.h = h;
-  b.src = in + static_cast<size_t>(plane) * h * b.len;
-  b.dst = out + static_cast<size_t>(plane) * ho * b.len;
   b.y0 = band * rows_per_block;
   b.rows = min(rows_per_block, ho - b.y0);
   b.first = b.y0 + row_off;
+  // The lane's run of the stream; a lane past its end takes the last run's
+  // place (valid loads, no store). The division is 32-bit where the runs'
+  // count allows.
   const int runs = (b.len + kRun - 1) / kRun;
-  const int run = seg * kWarp + lane;
-  b.active = run < runs;
-  b.x = kRun * min(run, runs - 1);
+  const long long total = static_cast<long long>(n) * runs;
+  const long long first = static_cast<long long>(group) * kWarp;
+  if (first >= total) return;  // the whole warp
+  const long long f = first + lane;
+  b.active = f < total;
+  const long long g = min(f, total - 1);
+  const int plane = total <= INT_MAX ? static_cast<int>(g) / runs : static_cast<int>(g / runs);
+  const int run = static_cast<int>(g - static_cast<long long>(plane) * runs);
+  b.src = in + static_cast<size_t>(plane) * h * b.len;
+  b.dst = out + static_cast<size_t>(plane) * ho * b.len;
+  b.x = kRun * run;
   b.keep = b.len - b.x;
-  b.left = lane == 0;
-  b.right = run == runs - 1 || (lane == kWarp - 1 && b.active);
+  b.left = lane == 0 || run == 0;
+  b.right = lane == kWarp - 1 || run == runs - 1;
   if constexpr (kPairs) {
     walk<R>(PairsForm<R, kC>(b), b);
   } else {
@@ -407,8 +428,10 @@ int launch_kc(const uint8_t* in, uint8_t* out, int n, int h, int w, int c, int h
   const long long len = static_cast<long long>(w) * c;
   const int rpb = rows_per_block < ho ? rows_per_block : ho;
   const int tiles = (ho + rpb - 1) / rpb;
-  const long long segs = ((len + kRun - 1) / kRun + kWarp - 1) / kWarp;
-  const long long units = static_cast<long long>(n) * tiles * segs;
+  const long long runs = (len + kRun - 1) / kRun;
+  const long long segs = (runs + kWarp - 1) / kWarp;
+  const long long groups = (n * runs + kWarp - 1) / kWarp;
+  const long long units = (groups + segs - 1) / segs * segs * tiles;
   if (units > INT_MAX - kWarpsPerBlock) return static_cast<int>(cudaErrorInvalidValue);
   const auto blocks = static_cast<unsigned>((units + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const bool aligned = reinterpret_cast<uintptr_t>(in) % kRun == 0 &&
@@ -417,13 +440,13 @@ int launch_kc(const uint8_t* in, uint8_t* out, int n, int h, int w, int c, int h
   if constexpr (kHasPairs<R, kC>) {
     if (aligned) {
       blur_u8_kernel<R, kC, true><<<blocks, kThreads, 0, stream>>>(
-          in, out, h, w, c, ho, row_off, rpb, tiles, static_cast<int>(segs),
+          in, out, h, w, c, ho, row_off, rpb, tiles, static_cast<int>(segs), n,
           static_cast<int>(units));
       return static_cast<int>(cudaGetLastError());
     }
   }
   blur_u8_kernel<R, kC, false><<<blocks, kThreads, 0, stream>>>(
-      in, out, h, w, c, ho, row_off, rpb, tiles, static_cast<int>(segs),
+      in, out, h, w, c, ho, row_off, rpb, tiles, static_cast<int>(segs), n,
       static_cast<int>(units));
   return static_cast<int>(cudaGetLastError());
 }

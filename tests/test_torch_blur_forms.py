@@ -2,12 +2,14 @@
 kernels, the port's plain blur and the NumPy oracle, exactly.
 
 ``hipe_tpu_torch/csrc/blur_planar.cu`` computes the binomial blur in a form
-other than the definition. A warp owns a band of ``rows_per_block`` output
-rows and a segment of 32 runs of 8 bytes across them, one run a lane, and
-walks down the band. A lane's window is its run and the words of its
-neighbours' runs beside it: by shuffle from the lanes beside it, loaded by
-the segment's outer lanes, and at the row's first and last run made from the
-run's own edge pixel (aligned rows) or loaded as clamped bytes (the rest).
+other than the definition. The stream's runs of 8 bytes are taken in
+(plane, run) order, and a warp owns 32 consecutive ones, one a lane, which
+may span planes, and a band of ``rows_per_block`` output rows, which it
+walks down. A lane's window is its run and the words of its neighbours'
+runs beside it: by shuffle from the lanes beside it, loaded by the warp's
+outer lanes, and at a row's first and last run, wherever it sits in the
+warp, made from the run's own edge pixel (aligned rows) or loaded as
+clamped bytes (the rest); a shuffle across a plane's edge is never used.
 Each window row is summed across once, two outputs a 32-bit word in 16-bit
 lanes, from byte pairs at offsets ``k*C``; the last ``2r+1`` row sums rotate
 through ``2r+1`` slots and are summed down in 16-bit lanes (r <= 2) or
@@ -21,6 +23,7 @@ interpret mode, as its own tests run them), the port's plain blur's and the
 oracle's, bit for bit.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -32,11 +35,11 @@ import jax.numpy as jnp
 from hipe_tpu.ops import blur as jblur
 from hipe_tpu.ops import pallas_blur
 from hipe_tpu_torch.ops import blur as tblur
-from hipe_tpu_torch.ops import planar
+from hipe_tpu_torch.ops import cuda_blur, planar
 from hipe_tpu_torch.ops import reference as tref
 
 RUN = 8  # bytes a lane owns: lanes::kRun
-WARP = 32  # runs a segment
+WARP = 32  # runs a warp
 OUT_PAIRS = (0, 1, 4, 5)  # first column of output pair k: columns (o, o + 2)
 
 
@@ -55,30 +58,73 @@ def _clamp_byte(p: torch.Tensor, length: int, c: int) -> torch.Tensor:
     return torch.where(p < 0, p % c, torch.where(p >= length, length - c + (p - length) % c, p))
 
 
-def _map(length: int):
-    """The lanes of a row: each run's first byte, lane in its segment, and
-    whether it is the segment's first lane and its last lane holding a run."""
+def _map(length: int, n: int = 1):
+    """The lanes of K1's warps over n planes of rows of ``length`` bytes:
+    the stream's runs in (plane, run) order, 32 a warp, lane = index % 32.
+    Per lane: its plane, its run's first byte, whether it holds a run (lanes
+    past the stream's last run take the last run's place and store
+    nothing), and whether it is ``left`` (lane 0 or its row's first run: no
+    lane holds the run left of it) and ``right`` (lane 31 or its row's last
+    run)."""
     runs = -(-length // RUN)
-    run = torch.arange(runs)
-    lane = run % WARP
-    return RUN * run, lane == 0, (lane == WARP - 1) | (run == runs - 1)
+    total = n * runs
+    f = torch.arange(-(-total // WARP) * WARP)
+    lane = f % WARP
+    active = f < total
+    f = f.clamp(max=total - 1)
+    plane, run = f // runs, f % runs
+    return (plane, RUN * run, active, (lane == 0) | (run == 0),
+            (lane == WARP - 1) | (run == runs - 1))
+
+
+def _shuffle(v: torch.Tensor, delta: int) -> torch.Tensor:
+    """__shfl_up_sync (delta -1) or __shfl_down_sync (+1) over the lanes of
+    v (lanes, ...): each lane reads lane + delta of its warp, or its own
+    value past the warp's edge."""
+    idx = torch.arange(v.shape[0])
+    src = idx + delta
+    return v[torch.where((src // WARP == idx // WARP) & (src >= 0), src, idx)]
+
+
+def _units(n: int, length: int, ho: int, rows_per_block: int):
+    """launch_kc's warp units and blur_u8_kernel's reading of each, over
+    (chunk of segs groups, band, group of the chunk), the group fastest,
+    segs = ceil(runs a row / 32): per unit its group and band, and the
+    stream's groups (units of a group past them pad the last chunk)."""
+    runs = -(-length // RUN)
+    segs, groups = -(-runs // WARP), -(-n * runs // WARP)
+    tiles = -(-ho // min(rows_per_block, ho))
+    u = torch.arange(-(-groups // segs) * segs * tiles)
+    return u // segs // tiles * segs + u % segs, u // segs % tiles, groups
+
+
+def _launch_lanes(n: int, length: int, ho: int, rows_per_block: int):
+    """launch_kc's warps that walk a band over n planes of rows of
+    ``length`` bytes, their lanes, and the lanes holding a run (each run of
+    the stream once a band); the warps that pad the last chunk return at
+    once and are not counted."""
+    runs, bands = n * -(-length // RUN), -(-ho // min(rows_per_block, ho))
+    warps = -(-runs // WARP) * bands
+    return warps, WARP * warps, runs * bands
 
 
 def _window(line: torch.Tensor, c: int, r: int, vec: bool) -> torch.Tensor:
-    """(B, runs, 8 + 8*side) int64: each lane's window bytes q = -4 side ..
-    8 + 4 side around its run, assembled as the pairs form assembles it."""
+    """(lanes, 8 + 8*side) int64: each lane's window bytes q = -4 side ..
+    8 + 4 side around its run, over the same row of the B planes of line
+    (B, length), assembled as the pairs form assembles it."""
     length = line.shape[-1]
     side = (r * c + 3) // 4
-    x, left, right = _map(length)
+    plane, x, _, left, right = _map(length, line.shape[0])
     k8, ks = torch.arange(RUN), torch.arange(4 * side)
-    own = line[:, _clamp_byte(x[:, None] + k8, length, c)]
-    up = torch.roll(own, 1, dims=1)[..., RUN - 4 * side:]  # __shfl_up_sync
-    down = torch.roll(own, -1, dims=1)[..., :4 * side]  # __shfl_down_sync
+    pl = plane[:, None]
+    own = line[pl, _clamp_byte(x[:, None] + k8, length, c)]
+    up = _shuffle(own, -1)[..., RUN - 4 * side:]  # __shfl_up_sync
+    down = _shuffle(own, 1)[..., :4 * side]  # __shfl_down_sync
     if vec:
         # Aligned rows: the outer lanes load the words beside their run; at
-        # the row's ends they make them from the run's own edge pixel.
-        loaded_l = line[:, (x[:, None] - 4 * side + ks).clamp(0, length - 1)]
-        loaded_r = line[:, (x[:, None] + RUN + ks).clamp(0, length - 1)]
+        # a row's ends they make them from the run's own edge pixel.
+        loaded_l = line[pl, (x[:, None] - 4 * side + ks).clamp(0, length - 1)]
+        loaded_r = line[pl, (x[:, None] + RUN + ks).clamp(0, length - 1)]
         before = own[..., (ks - 4 * side) % c]  # before_row: channel q mod C
         after = own[..., RUN - c + ks % c]  # after_row: the last pixel's
         lft = torch.where((left & (x > 0))[:, None], loaded_l,
@@ -88,8 +134,8 @@ def _window(line: torch.Tensor, c: int, r: int, vec: bool) -> torch.Tensor:
     else:
         # Unaligned rows: the outer lanes load their neighbour run as
         # clamped bytes.
-        loaded_l = line[:, _clamp_byte(x[:, None] - RUN + k8, length, c)][..., RUN - 4 * side:]
-        loaded_r = line[:, _clamp_byte(x[:, None] + RUN + k8, length, c)][..., :4 * side]
+        loaded_l = line[pl, _clamp_byte(x[:, None] - RUN + k8, length, c)][..., RUN - 4 * side:]
+        loaded_r = line[pl, _clamp_byte(x[:, None] + RUN + k8, length, c)][..., :4 * side]
         lft = torch.where(left[:, None], loaded_l, up)
         rgt = torch.where(right[:, None], loaded_r, down)
     return torch.cat([lft, own, rgt], dim=-1).long()
@@ -101,7 +147,7 @@ def _pair(win: torch.Tensor, q: int, side: int) -> torch.Tensor:
 
 
 def _row_sum(line: torch.Tensor, c: int, r: int, vec: bool) -> torch.Tensor:
-    """(B, runs, 4) int64: each run's row sum, output pairs in 16-bit lanes."""
+    """(lanes, 4) int64: each lane's row sum, output pairs in 16-bit lanes."""
     taps = [math.comb(2 * r, j) for j in range(2 * r + 1)]
     if _pairs_form(r, c):
         side = (r * c + 3) // 4
@@ -112,10 +158,10 @@ def _row_sum(line: torch.Tensor, c: int, r: int, vec: bool) -> torch.Tensor:
         # The run form: each byte's taps loaded one by one, a pixel clamped.
         length = line.shape[-1]
         w = length // c
-        x, _, _ = _map(length)
+        plane, x, _, _, _ = _map(length, line.shape[0])
         b = (x[:, None] + torch.arange(RUN)).clamp(max=length - 1 + RUN)
         px, ch = b // c, b % c
-        v = sum(t * line[:, (px + j - r).clamp(0, w - 1) * c + ch].long()
+        v = sum(t * line[plane[:, None], (px + j - r).clamp(0, w - 1) * c + ch].long()
                 for j, t in enumerate(taps))
         sums = [v[..., o] | v[..., o + 2] << 16 for o in OUT_PAIRS]
     out = torch.stack(sums, dim=-1)
@@ -124,7 +170,7 @@ def _row_sum(line: torch.Tensor, c: int, r: int, vec: bool) -> torch.Tensor:
 
 
 def _sum_down(ring: list, p: int, r: int) -> torch.Tensor:
-    """(B, runs, 8) uint8: output row p's runs from the ring's slots
+    """(lanes, 8) uint8: output row p's runs from the ring's slots
     (p + j) % N, j = 0 .. 2r: sum_down in 16-bit or 32-bit lanes, >> 4r,
     and pack_pairs's byte order."""
     n = 2 * r + 1
@@ -149,17 +195,19 @@ def _sum_down(ring: list, p: int, r: int) -> torch.Tensor:
 def k1_form(rows: torch.Tensor, c: int, r: int, *, h_pad: bool = True,
             rows_per_block: int = 16, vec: bool | None = None) -> torch.Tensor:
     """K1 over rows (B, H, W*C) (planar planes are C = 1) as the kernel
-    computes it: each band walked down, each window row loaded once and
-    summed across into slot i % N, each output row summed down from the
-    slots, each run stored with its tail masked."""
+    computes it: the B images' runs in (plane, run) order, 32 a warp, each
+    band walked down, each window row loaded once and summed across into
+    slot i % N, each output row summed down from the slots, each lane's run
+    stored with its tail masked, and nothing stored by a lane past the
+    stream's last run."""
     bsz, h, length = rows.shape
     vec = length % RUN == 0 if vec is None else vec
     ho = h if h_pad else h - 2 * r
     row_off = -r if h_pad else 0
     n = 2 * r + 1
-    xs, _, _ = _map(length)
+    plane, xs, active, _, _ = _map(length, bsz)
     keep = (length - xs).clamp(max=RUN)
-    out = torch.full((bsz, ho, xs.numel() * RUN + RUN), 0xAB, dtype=torch.uint8)
+    out = torch.full((bsz, ho, -(-length // RUN) * RUN + RUN), 0xAB, dtype=torch.uint8)
     rpb = min(rows_per_block, ho)
     for y0 in range(0, ho, rpb):
         def row_sum(i, y0=y0):
@@ -172,8 +220,8 @@ def k1_form(rows: torch.Tensor, c: int, r: int, *, h_pad: bool = True,
             ring[(p + 2 * r) % n] = row_sum(p + 2 * r)
             run = _sum_down(ring, p, r)
             for k in range(RUN):
-                m = keep > k  # the masked tail
-                out[:, y0 + p, (xs + k)[m]] = run[:, m, k]
+                m = active & (keep > k)  # the masked tail, the idle lanes
+                out[plane[m], y0 + p, xs[m] + k] = run[m, k]
     assert torch.all(out[..., length:] == 0xAB)  # nothing stored past the row
     return out[..., :length]
 
@@ -197,18 +245,34 @@ def _plain_rows(x: np.ndarray, c: int, r: int, h_pad: bool) -> np.ndarray:
     return tblur.gaussian_blur_rows(torch.from_numpy(x), c, r, h_pad=h_pad).numpy()
 
 
-@pytest.mark.parametrize("length", [1, 7, 8, 40, 255, 256, 257, 768, 1100])
+@pytest.mark.parametrize("length", [1, 7, 8, 40, 255, 256, 257, 768, 1100, 72, 264, 320])
 def test_thread_map_covers_each_byte_once_in_segments_of_32_runs(length):
-    x, left, right = _map(length)
-    runs = x.numel()
-    assert runs == -(-length // RUN)
-    covered = (x[:, None] + torch.arange(RUN)).flatten()
-    assert torch.equal(covered[covered < length], torch.arange(length))
-    # The launch's warp units: (plane, band, segment); lanes past the last
-    # run of a segment hold none.
-    segs = -(-runs // WARP)
-    assert int(left.sum()) == segs and int(right.sum()) == segs
-    assert bool(right[-1]) and bool(left[0])
+    """Over n planes, the active lanes hold each byte of each plane's row
+    once; only the last warp has idle lanes; left and right mark each warp's
+    outer lanes and each row's ends; where a row's runs are a multiple of
+    32, each warp holds one segment of one plane, lane l its run 32 s + l."""
+    runs = -(-length // RUN)
+    for n in (1, 2, 3, 7, 33):
+        plane, x, active, left, right = _map(length, n)
+        lanes = plane.numel()
+        assert lanes == -(-n * runs // WARP) * WARP
+        assert int(active.sum()) == n * runs and bool(active[:n * runs].all())
+        assert lanes - n * runs < WARP  # idle lanes: the last warp's tail
+        byte = (plane[active, None] * length + x[active, None] + torch.arange(RUN)).flatten()
+        inside = (x[active, None] + torch.arange(RUN)).flatten() < length
+        assert torch.equal(byte[inside], torch.arange(n * length))
+        lane = torch.arange(lanes) % WARP
+        first, last = (x == 0) & active, (x == RUN * (runs - 1)) & active
+        assert torch.equal(left & active, ((lane == 0) | first) & active)
+        assert torch.equal(right & active, ((lane == WARP - 1) | last) & active)
+        assert int(first.sum()) == n and int(last.sum()) == n
+        warp_plane = plane.view(-1, WARP)
+        if runs % WARP == 0:
+            assert bool((warp_plane == warp_plane[:, :1]).all())
+            assert torch.equal(x.view(-1, WARP) // RUN % WARP, lane.view(-1, WARP))
+        else:
+            # Some warp spans two planes or more.
+            assert bool((warp_plane != warp_plane[:, :1]).any()) == (n > 1)
     for ho, rpb in ((1, 16), (37, 8), (256, 64), (256, 256)):
         tiles = -(-ho // min(rpb, ho))
         bands = [min(rpb, ho - y0) for y0 in range(0, ho, min(rpb, ho))]
@@ -222,16 +286,17 @@ def test_neighbour_exchange_is_the_clamped_row(r, c, vec):
     """Each lane's window (shuffles, the outer lanes' loads, the edge
     pixel's bytes at the row's ends) is the row clamped a pixel at a time."""
     side = (r * c + 3) // 4
-    for w in (1, 2, 3, 5, 8, 64, 85, 257):
-        line = torch.from_numpy(_rows(2, 1, w, c, seed=w + c)[:, 0])
+    for w, n in itertools.product((1, 2, 3, 5, 8, 64, 85, 257, 40, 72, 264, 320), (2, 1, 5, 33)):
+        line = torch.from_numpy(_rows(n, 1, w, c, seed=w + c + n)[:, 0])
         length = line.shape[-1]
         if vec and length % RUN:
             continue
-        x, _, _ = _map(length)
+        plane, x, active, _, _ = _map(length, n)
         win = _window(line, c, r, vec)
         q = x[:, None] + torch.arange(-4 * side, RUN + 4 * side)
-        want = line[:, _clamp_byte(q, length, c)].long()
-        np.testing.assert_array_equal(win.numpy(), want.numpy(), err_msg=f"w={w}")
+        want = line[plane[:, None], _clamp_byte(q, length, c)].long()
+        np.testing.assert_array_equal(win[active].numpy(), want[active].numpy(),
+                                      err_msg=f"w={w} n={n}")
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
@@ -260,6 +325,79 @@ def test_form_matches_hipe_tpu_rows_kernel(r, c, h_pad):
         np.testing.assert_array_equal(_plain_rows(x, c, r, h_pad), want)
         got = _blur(x, c, r, h_pad=h_pad, rows_per_block=5)
         np.testing.assert_array_equal(got, want, err_msg=f"w={w}")
+
+
+@pytest.mark.parametrize("length", [8, 40, 72, 264, 320])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_form_where_warps_span_planes(r, length):
+    """Planes whose rows are no multiple of 32 runs, so a warp holds the end
+    of one plane's row and the start of the next (a warp of 8-byte rows
+    holds 32 planes), and stream sizes that leave the last warp partly
+    empty: aligned and as the unaligned path loads them, clamp and valid,
+    against the plain planar blur and the oracle; rows of C = 3 at 320
+    pixels, an odd image count, against the plain rows blur."""
+    for n in (1, 3, 7, 33):
+        x = _rows(n, 11, length, 1, seed=n + length + r)
+        oracle = np.stack([tref.gaussian_blur_int_oracle(p, r) for p in x])
+        for h_pad in (True, False):
+            plain = tblur.gaussian_blur_planar(torch.from_numpy(x), r, h_pad=h_pad).numpy()
+            np.testing.assert_array_equal(plain, oracle if h_pad else oracle[:, r:11 - r])
+            for vec, rpb in ((True, 4), (False, 3), (True, 16)):
+                got = _blur(x, 1, r, h_pad=h_pad, rows_per_block=rpb, vec=vec)
+                np.testing.assert_array_equal(got, plain, err_msg=f"n={n} {h_pad} {vec} {rpb}")
+    if length == 320:
+        x = _rows(3, 10, 320, 3, seed=r)
+        for vec in (True, False):
+            np.testing.assert_array_equal(_blur(x, 3, r, rows_per_block=4, vec=vec),
+                                          _plain_rows(x, 3, r, True))
+
+
+@pytest.mark.parametrize("n,h,row_bytes", [(15000, 240, 320), (15000, 256, 256), (5000, 240, 960),
+                                           (5000, 256, 768), (33, 16, 40), (7, 5, 8), (1, 9, 1),
+                                           (5, 11, 264), (3, 1, 7)])
+def test_launch_lanes_counts_the_warps_and_live_lanes(n, h, row_bytes):
+    """_launch_lanes against the kernel's unit decode (_units) and the lane
+    map (_map): ceil(n * runs / 32) warps a band, every lane live but the
+    last warp's tail; where a row's runs are a multiple of 32, the warps of
+    a segment of one row a warp (the map before (plane, run) order)."""
+    runs = -(-row_bytes // RUN)
+    for radius, h_pad, rpb in itertools.product((1, 4), (True, False), (1, 8, 16, 64, 512)):
+        ho = cuda_blur.out_rows(h, radius, h_pad)
+        if ho < 1:
+            continue
+        bands = -(-ho // min(rpb, ho))
+        warps, lanes, live = _launch_lanes(n, row_bytes, ho, rpb)
+        assert warps == -(-n * runs // WARP) * bands
+        assert lanes == WARP * warps and live == n * runs * bands
+        assert lanes - live == (-n * runs) % WARP * bands  # the last warp's tail
+        segment_warps = n * bands * -(-runs // WARP)
+        assert warps <= segment_warps
+        if runs % WARP == 0:
+            assert warps == segment_warps and live == lanes
+        if n * row_bytes <= 4096:
+            _, _, active, _, _ = _map(row_bytes, n)
+            assert (lanes, live) == (active.numel() * bands, int(active.sum()) * bands)
+        # The kernel's units: each (group, band) once, the padding of the
+        # last chunk besides (fewer than a chunk's groups a band); where a
+        # row's runs are a multiple of 32, unit u is (plane, band, segment)
+        # = (u / segs / bands, u / segs % bands, u % segs), as before.
+        group, band, groups = _units(n, row_bytes, ho, rpb)
+        walks = group < groups
+        assert int(walks.sum()) == warps
+        assert 0 <= group.numel() - warps < -(-runs // WARP) * bands
+        pairs = group[walks] * bands + band[walks]
+        assert torch.equal(pairs.sort().values, torch.arange(warps))
+        if runs % WARP == 0:
+            segs, u = runs // WARP, torch.arange(group.numel())
+            assert bool(walks.all())
+            assert torch.equal(group // segs, u // segs // bands)  # the plane
+            assert torch.equal(group % segs, u % segs) and torch.equal(band, u // segs % bands)
+    if (n, h, row_bytes) == (15000, 240, 320):
+        # The benchmark's stream at 16 rows a band: 62.5% of the lanes held a
+        # run as segments of one row; every lane does now.
+        warps, lanes, live = _launch_lanes(n, row_bytes, h, 16)
+        assert (warps, live) == (281_250, 9_000_000) and live == lanes
+        assert 15000 * 15 * 2 * WARP * 0.625 == live
 
 
 @pytest.mark.parametrize("c", [1, 3, 4])

@@ -24,10 +24,13 @@ def cuda():
     return torch.device("cuda")
 
 
-# Widths 255, 257 and 768 span several 32-run segments of a warp; 53 and 7
-# are no multiple of a run.
+# Widths 255, 257 and 768 are several warps of 32 runs a row; 53 and 7 are
+# no multiple of a run. Where a row's runs are no multiple of 32 (320, 40, 8
+# and 264 bytes among them) a warp spans planes; in the last four the stream
+# leaves the last warp partly empty.
 @pytest.mark.parametrize("shape", [(6, 240, 320), (5, 37, 53), (3, 1, 7), (2, 9, 1),
-                                   (2, 20, 255), (2, 21, 257), (2, 19, 768)])
+                                   (2, 20, 255), (2, 21, 257), (2, 19, 768),
+                                   (33, 16, 40), (7, 5, 8), (5, 11, 264), (17, 240, 320)])
 @pytest.mark.parametrize("h_pad", [True, False])
 @pytest.mark.parametrize("radius", [1, 2, 3, 4])
 @pytest.mark.parametrize("offset", [0, 1])

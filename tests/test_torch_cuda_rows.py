@@ -16,12 +16,13 @@ from hipe_tpu_torch.ops import blur as tblur
 from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_rows_cuda
 from hipe_tpu_torch.ops.cuda_chain import filter_chain_rows_cuda
 from hipe_tpu_torch.ops.cuda_tiled import filter_stage_planar_tiled_cuda
+from hipe_tpu_torch.ops.planar import ROWS_PER_BLOCK_CANDIDATES
 
 pytestmark = pytest.mark.cuda
 
 LUT_NAME = "torchport_cuda_rows_dim"
 SHAPES = [(3, 37, 53), (2, 9, 1), (2, 1, 7), (2, 64, 96)]  # (B, H, W pixels)
-# Rows that span several 32-run segments of a warp.
+# Rows of several warps of 32 runs.
 WIDE_SHAPES = [(2, 20, 255), (2, 21, 257), (1, 19, 768)]
 CHAINS = [("gaussian3", "sharpen", "edge"), ("edge",), ("gaussian5", "solarize"),
           ("posterize4", "gaussian9", "edge"), (LUT_NAME, "sharpen")]
@@ -64,6 +65,28 @@ def test_k1_rows_matches_plain(cuda, offset, radius, h_pad, c, shape):
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"rows_per_block={rpb}"
     assert gaussian_blur_rows_cuda.launches == before + 4
+
+
+@pytest.mark.parametrize("h_pad", [True, False])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k1_rows_warps_span_images(cuda, offset, radius, h_pad):
+    """The engine's and the codec's rows, C = 3 at 320 pixels (960 bytes,
+    120 runs: no multiple of 32), an odd image count: warps span images and
+    the last is partly empty; every rows_per_block candidate."""
+    b, h, w, c = 3, 240, 320, 3
+    full = _rows(cuda, (b * h * w + 1, 1, 1), c, seed=radius).flatten()
+    x = full[offset:offset + b * h * w * c].view(b, h, w * c)
+    want = tblur.gaussian_blur_rows(x, c, radius, h_pad=h_pad)
+    out = torch.empty(want.numel() + offset, dtype=torch.uint8, device=cuda)[offset:]
+    out = out.view(want.shape)
+    rpbs = sorted({1, *ROWS_PER_BLOCK_CANDIDATES, want.shape[1]})
+    before = gaussian_blur_rows_cuda.launches
+    for rpb in rpbs:
+        got = gaussian_blur_rows_cuda(x, c, radius, h_pad=h_pad, rows_per_block=rpb, out=out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"rows_per_block={rpb}"
+    assert gaussian_blur_rows_cuda.launches == before + len(rpbs)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

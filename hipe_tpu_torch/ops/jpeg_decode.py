@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, quant_table
+from hipe_tpu_torch.profiling.trace import span
 
 # jidctint.c fixed-point constants (CONST_BITS = 13).
 CONST_BITS = 13
@@ -514,15 +515,19 @@ def decode_planes_scaled(geo: DecodeGeometry, comp_coefs: list, qtables: list,
     is 8, as for 4:2:0 chroma at 1/2), then chroma whose size could not
     absorb its sampling ratio (4:2:2, 4:4:0) is upsampled at the scaled
     resolution, as jdsample.c does. Output dims are ceil(dim/scale_denom);
-    arguments and layouts as :func:`decode_planes`."""
+    arguments and layouts as :func:`decode_planes`. The IDCTs are one
+    ``codec.idct`` span, upsampling and colour one ``codec.upsample_color``
+    span, each with the device time of all its launches or chunks."""
     if layout not in ("hwc", "rows"):
         raise ValueError(f"layout must be 'hwc' or 'rows', got {layout!r}")
     if not supported_scaled(geo, scale_denom):
         raise ValueError(f"unsupported sampling geometry: {geo.comps} at 1/{scale_denom}")
     lead = comp_coefs[0].shape[:-3]
-    grids = [_scaled_grid(_flat(c), q, ss)
-             for c, q, ss in zip(comp_coefs, qtables, scaled_sizes(geo, scale_denom))]
-    rows = _rows_from_grids(geo, grids, scale_denom)
+    with span("codec.idct", comp_coefs[0].device):
+        grids = [_scaled_grid(_flat(c), q, ss)
+                 for c, q, ss in zip(comp_coefs, qtables, scaled_sizes(geo, scale_denom))]
+    with span("codec.upsample_color", grids[0].device):
+        rows = _rows_from_grids(geo, grids, scale_denom)
     h, w = rows.shape[1], rows.shape[2] // geo.ncomps
     return rows.reshape(*lead, h, w * geo.ncomps) if layout == "rows" else \
         rows.reshape(*lead, h, w, geo.ncomps)

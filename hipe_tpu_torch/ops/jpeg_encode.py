@@ -46,6 +46,7 @@ from hipe_tpu_torch.ops.jpeg_decode import (
     _descale,
     _fix,
 )
+from hipe_tpu_torch.profiling.trace import span
 
 # jccolor.c rgb_ycc tables.
 _FIX_0_29900 = _fix(0.29900)
@@ -278,7 +279,10 @@ def encode_planes(geo: DecodeGeometry, img: torch.Tensor, qtables: list) -> list
     ``img``: (..., H, W, 3) uint8, or (..., H, W) / (..., H, W, 1) for
     grayscale. Returns ``[(..., Hb_i, Wb_i, 64) int16]``, libjpeg's own
     coefficients for the same pixels, quality and layout. On a CUDA tensor
-    each component's fDCT + quantize is one K7 launch.
+    each component's fDCT + quantize is one K7 launch. Colour conversion,
+    padding and downsampling are one ``codec.color_downsample`` span, the
+    fDCTs one ``codec.fdct`` span, each with the device time of all its
+    chunks or launches.
     """
     hgt, wid = geo.height, geo.width
     if geo.ncomps == 1:
@@ -296,7 +300,10 @@ def encode_planes(geo: DecodeGeometry, img: torch.Tensor, qtables: list) -> list
         x = img.reshape(-1, hgt, wid, 3)
     if x.dtype != torch.uint8:
         raise TypeError(f"expected uint8 pixels, got {x.dtype}")
-    coefs = [fdct_quantize(g, q) for g, q in zip(_sample_grids(geo, x), qtables)]
+    with span("codec.color_downsample", x.device):
+        grids = _sample_grids(geo, x)
+    with span("codec.fdct", x.device):
+        coefs = [fdct_quantize(g, q) for g, q in zip(grids, qtables)]
     return [c.reshape(*lead, *c.shape[1:]) for c in coefs]
 
 

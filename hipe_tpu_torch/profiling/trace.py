@@ -19,10 +19,27 @@ A span whose body raises is not recorded (``events.StageClock``'s rule).
 Records stay in memory, at most :data:`MAX_RECORDS` a name;
 :func:`summary` reads them and :func:`reset` clears them.
 
-The spans: ``stream.pass`` (host only) around each pass of
-``runtime/device_stream.py``'s ``DeviceStreamRunner.run_passes``, and
-``stats.histogram``, ``stats.lut``, ``stats.apply`` around equalize's three
-stages in ``ops/equalize.py``'s ``equalize_planar``.
+The spans:
+
+- ``stream.pass`` (host only) around each pass of
+  ``runtime/device_stream.py``'s ``DeviceStreamRunner.run_passes``;
+- ``stats.histogram``, ``stats.lut``, ``stats.apply`` (with device time)
+  around equalize's three stages in ``ops/equalize.py``'s
+  ``equalize_planar``;
+- ``serve.transcode`` (host only) around each call of the function
+  ``runtime/serve.py``'s ``ServingPipeline.transcode_fn`` returns: one a
+  transcode of a group;
+- the codec's stages, each with device time and each once a call of the
+  function it sits in, around all of that stage's launches or chunks:
+  ``codec.idct`` (the components' IDCTs: K6, or the reduced IDCTs) and
+  ``codec.upsample_color`` (upsampling and YCbCr -> RGB) in
+  ``ops/jpeg_decode.py``'s ``decode_planes_scaled``; ``codec.filter`` (the
+  filter and the stages after it) in ``runtime/serve.py``'s
+  ``ServingPipeline.encode_fn`` with ``with_filter``; and
+  ``codec.color_downsample`` (RGB -> YCbCr, edge padding, downsampling) and
+  ``codec.fdct`` (fDCT + quantize: K7) in ``ops/jpeg_encode.py``'s
+  ``encode_planes``. A transcode records ``serve.transcode`` and each of
+  these five once.
 """
 
 from __future__ import annotations

@@ -52,6 +52,7 @@ from hipe_tpu_torch.models import pipelines as plib
 from hipe_tpu_torch.ops import jpeg_decode as jd
 from hipe_tpu_torch.ops import jpeg_encode as je
 from hipe_tpu_torch.ops.resize import resize_bilinear
+from hipe_tpu_torch.profiling.trace import span
 
 
 def now_ms() -> float:
@@ -310,7 +311,8 @@ class ServingPipeline:
 
     def encode_fn(self, h: int, w: int, c: int, with_filter: bool):
         """rows (B, H, W*C) on the card -> per-component coefficients, with
-        the filter and the stages after it first if ``with_filter``."""
+        the filter and the stages after it first if ``with_filter`` (then
+        one ``codec.filter`` span, with the rows' device time)."""
         oh, ow = self._out_dims(h, w) if with_filter else (h, w)
         oc = self._out_c(c) if with_filter else c
         geo = je.encode_geometry(oh, ow, oc, self.encode_subsampling)
@@ -319,7 +321,8 @@ class ServingPipeline:
 
         def fn(rows: torch.Tensor) -> list[torch.Tensor]:
             if with_filter:
-                rows = self._post_filter(pipe.apply_rows(rows, c), h, w, c)
+                with span("codec.filter", rows.device):
+                    rows = self._post_filter(pipe.apply_rows(rows, c), h, w, c)
             return je.encode_planes(geo, rows.reshape(rows.shape[0], oh, ow, oc), qtables)
 
         return fn
@@ -425,7 +428,8 @@ class ServingPipeline:
         """The full numeric transcode on the card, for one (geometry, quant
         tables) group: ``fn(*comp_coefs) -> [coefs]``, the (scaled) decode
         (K6 a component, or the reduced IDCTs), the filter (K1's rows entry
-        for blur3), the stages after it, encode (K7 a component)."""
+        for blur3), the stages after it, encode (K7 a component). A call is
+        one host-only ``serve.transcode`` span (``profiling/trace.py``)."""
         key = ("transcode", geo, qkey, *self._options_key())
         if key not in self._fns:
             qtables, denom = list(qkey), self.decode_scale
@@ -433,8 +437,9 @@ class ServingPipeline:
             encode = self.encode_fn(h, w, 3 if geo.ncomps == 3 else 1, with_filter=True)
 
             def fn(*comp_coefs: torch.Tensor) -> list[torch.Tensor]:
-                return encode(jd.decode_planes_scaled(geo, list(comp_coefs), qtables, denom,
-                                                      layout="rows"))
+                with span("serve.transcode"):
+                    return encode(jd.decode_planes_scaled(geo, list(comp_coefs), qtables,
+                                                          denom, layout="rows"))
 
             self._fns[key] = fn
         return self._fns[key]

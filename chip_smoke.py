@@ -13,7 +13,9 @@ Phases, one line each:
    (``hipe_tpu_torch/csrc/rank_chain_planar.cu``), K4
    (``hipe_tpu_torch/csrc/tiled_blur_planar.cu``), K5
    (``hipe_tpu_torch/csrc/tiled_stage_planar.cu``), K6 and K7
-   (``hipe_tpu_torch/csrc/dct_blocks.cu``) from the checkout's sources, one
+   (``hipe_tpu_torch/csrc/dct_blocks.cu``), K8-K10
+   (``hipe_tpu_torch/csrc/equalize_planar.cu``) and K11
+   (``hipe_tpu_torch/csrc/ycc_rows.cu``) from the checkout's sources, one
    ``nvcc`` a source, all at once; prints the ptxas report (registers,
    spills, stack frame) of K1's 32 instantiations (radius 1-4 by C = 1-4 or
    any, the run form and, where r*C <= 8, the pairs form), K2's planar
@@ -92,9 +94,11 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     the one-call counterparts of K5's invert and posterize4, beside K5's
     own times for those two stages.
 
-15. The codec's build: the ptxas report of K6 and K7 (``dct_blocks.cu``,
-    built in phase 2 with the rest): registers, spills, stack frame,
-    barriers, shared memory; fails if K7 spills or keeps a stack frame.
+15. The codec's build: the ptxas report of K6 and K7 (``dct_blocks.cu``)
+    and of K11's four kernels (``ycc_rows.cu``: the aligned and the any
+    form, each upsampling or not), built in phase 2 with the rest:
+    registers, spills, stack frame, barriers, shared memory; fails if K7
+    spills or keeps a stack frame.
 16. Holds K6 (dequantize + IDCT) against its plain PyTorch version:
     distinct random coefficients over the full int16 range (+-32767 among
     them) and over [-2048, 2048), random 8-bit and 16-bit quant tables,
@@ -115,9 +119,19 @@ path's own kernel may run on it (K1 blur3, K2 chain, K3 denoise).
     through ``ServingPipeline.transcode_fn``, passes chained): per-pass ms
     (3 sessions), the result against the plain path on the card (after 3
     chained passes for the transcode), the first image against the port's
-    CPU path, the device idle share; only K6, K7 and K1's rows entry may
-    launch (a transcode pass: 3, 1, 3). K6's, K7's and K1's own times and
-    those of the torch work between them split a transcode pass.
+    CPU path, the device idle share; only K6, K11 (upsample + colour), K7
+    and K1's rows entry may launch, each exactly as often a pass as the
+    path needs (a transcode pass: 3, 1, 1, 3; the ``kernels`` line's
+    ``launches_per_pass`` of K6, K7 and K11 are these counts over the
+    transcode's passes). K6's, K11's, K1's and K7's own times and that of
+    the torch colour + downsample split a transcode pass. Then K11 alone
+    over grids of the codec cell's shapes (5000 images of 320x240 4:2:0:
+    luma (240, 320), chroma 2 x (120, 160)), in its aligned form; over the
+    same grids at bases one byte off, and at the cell's 1/8 decode (40x30),
+    in its any form (the form each call took is read from the kernel names
+    torch.profiler records): ms a launch beside its bound (the bytes over
+    3.35 TB/s), a ``Tensor.copy_`` moving as many bytes, its plain
+    version's ms, and max_abs_err 0 against it.
 The byte-level serving round trip needs libjpeg for the host entropy layer;
 the card's machine has none (no ``jpeglib.h``, no ``libjpeg.so``), so it is
 driven only where phase 1 finds it (phase 20).
@@ -147,10 +161,11 @@ driven only where phase 1 finds it (phase 20).
     ``resize_to=(144, 200)`` and ``decode_gray`` with a ``colorize`` table
     from hex colours; the decode of 1000 CMYK and 1000 YCCK coefficient
     sets K7 makes from four planes; the seven lossless transforms over the
-    stream. A line a path: ms a pass (CUDA events), the K6, K7 and K1
+    stream. A line a path: ms a pass (CUDA events), the K6, K11, K7 and K1
     rows-entry launches over its passes alone (exactly those its options
-    need: K6 a component whose scaled DCT size is 8, K7 an output
-    component, K1 one; the transforms none), max_abs_err against the same
+    need: K6 a component whose scaled DCT size is 8, K11 one where
+    ``ycc_rows_fancy`` takes the decode, K7 an output component, K1 one;
+    the transforms none), max_abs_err against the same
     path with each kernel replaced by its plain version on the card, and
     its first 16 images against the same path on CPU tensors (the reduced
     IDCTs and the transforms among them): both must be 0. Where phase 1
@@ -524,7 +539,7 @@ def reset_counts() -> dict:
     """Every kernel wrapper's launch counter, set to 0: {label: wrapper}."""
     from hipe_tpu_torch.ops.cuda_blur import gaussian_blur_planar_cuda, gaussian_blur_rows_cuda
     from hipe_tpu_torch.ops.cuda_chain import filter_chain_planar_cuda, filter_chain_rows_cuda
-    from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, fdct_quantize_cuda
+    from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, fdct_quantize_cuda, ycc_rows_cuda
     from hipe_tpu_torch.ops.cuda_equalize import (apply_lut_planar_cuda, equalize_lut_cuda,
                                                   histogram_planes_cuda)
     from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
@@ -536,20 +551,22 @@ def reset_counts() -> dict:
                 "K3": rank_chain_planar_cuda, "K4": gaussian_blur_planar_tiled_cuda,
                 "K5": filter_stage_planar_tiled_cuda, "K6": dequant_idct_cuda,
                 "K7": fdct_quantize_cuda, "K8": histogram_planes_cuda,
-                "K9": equalize_lut_cuda, "K10": apply_lut_planar_cuda}
+                "K9": equalize_lut_cuda, "K10": apply_lut_planar_cuda, "K11": ycc_rows_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
 
 
-def check_counts(wrappers: dict, expect: dict, path: str) -> dict:
+def check_counts(wrappers: dict, expect: dict, path: str, exact: bool = False) -> dict:
     """The counts since reset_counts; raises unless each kernel in
-    ``expect`` launched at least that often and no other launched."""
+    ``expect`` launched at least that often (with ``exact``, that often)
+    and no other launched."""
     counts = {k: fn.launches for k, fn in wrappers.items()}
     for k, n in counts.items():
-        if k in expect and n < expect[k]:
+        if k in expect and (n != expect[k] if exact else n < expect[k]):
             raise AssertionError(f"{k} launched {n} times on the {path} main path, "
-                                 f"fewer than the {expect[k]} passes timed")
+                                 f"{'not' if exact else 'fewer than'} the {expect[k]} "
+                                 "its passes take")
         if k not in expect and n:
             raise AssertionError(f"{k} launched {n} times on the {path} main path, "
                                  "which is not its kernel's")
@@ -1120,8 +1137,8 @@ def phase_large_frames(card: str, pipeline: str) -> dict:
 
 
 def phase_dct_build(card: str) -> dict:
-    """The ptxas report of K6 and K7 (built in phase 2 with the rest); fails
-    if K7 spills or keeps a stack frame."""
+    """The ptxas report of K6, K7 and K11 (built in phase 2 with the rest);
+    fails if K7 spills or keeps a stack frame."""
     import re
 
     from hipe_tpu_torch.ops import _build
@@ -1129,19 +1146,26 @@ def phase_dct_build(card: str) -> dict:
     log = (_build.build().parent / "build.log").read_text()
     found = {}
     for entry in log.split("Compiling entry function")[1:]:
-        name = re.search(r"(dequant_idct|fdct_quantize)_kernel", entry.split("\n")[0])
+        head = entry.split("\n")[0]
+        dct = re.search(r"(dequant_idct|fdct_quantize)_kernel", head)
+        # K11's instantiations: ycc_rows_<form>_kernel<fancy>, mangled.
+        k11 = re.search(r"ycc_rows_(vec|any)_kernelILb([01])E", head)
+        name = (dct.group(0) if dct else k11 and
+                f"ycc_rows_{k11.group(1)}_kernel<{bool(int(k11.group(2)))}>")
         if name:
             barriers = re.search(r"used (\d+) barriers", entry)
             smem = re.search(r"(\d+) bytes smem", entry)
-            found[name.group(0)] = (*ptxas_numbers(entry),
+            found[name] = (*ptxas_numbers(entry),
                                     int(barriers.group(1)) if barriers else -1,
                                     int(smem.group(1)) if smem else -1)
-    if set(found) != {"dequant_idct_kernel", "fdct_quantize_kernel"}:
-        raise AssertionError(f"build.log has no ptxas report of K6 and K7: {found}")
+    k11 = {f"ycc_rows_{form}_kernel<{fancy}>" for form in ("vec", "any")
+           for fancy in (True, False)}
+    if set(found) != {"dequant_idct_kernel", "fdct_quantize_kernel"} | k11:
+        raise AssertionError(f"build.log has no ptxas report of K6, K7 and K11: {found}")
     if found["fdct_quantize_kernel"][1:4] != (0, 0, 0):
         raise AssertionError(f"K7 spills or keeps a stack frame: {found}")
-    print("[15 codec build] csrc/dct_blocks.cu (registers, spill stores, spill loads, stack "
-          "frame, barriers, shared bytes): " + "; ".join(
+    print("[15 codec build] csrc/dct_blocks.cu, csrc/ycc_rows.cu (registers, spill stores, "
+          "spill loads, stack frame, barriers, shared bytes): " + "; ".join(
               f"{name} {'/'.join(str(n) for n in nums)}" for name, nums in sorted(found.items()))
           + f" [{card}]", flush=True)
     return found
@@ -1303,10 +1327,11 @@ def phase_codec_main_paths(card: str) -> dict:
         return x
 
     # The plain path on the card: the same torch work between the kernels,
-    # the plain DCTs and the plain rows blur.
+    # the plain DCTs, the plain upsample + colour and the plain rows blur.
     def plain_decode(*c):
-        return jd._rows_from_grids(
-            geo, [chunked(jd.idct8x8_islow, x, q) for x, q in zip(c, qt)])
+        with plain_kernels():
+            return jd._rows_from_grids(
+                geo, [chunked(jd.idct8x8_islow, x, q) for x, q in zip(c, qt)])
 
     def plain_encode(r):
         grids = je._sample_grids(geo, r.reshape(r.shape[0], SIDE, SIDE, CHANNELS))
@@ -1326,21 +1351,26 @@ def phase_codec_main_paths(card: str) -> dict:
     paths = {
         "encode": (lambda: encode(rows), {"K7": 3},
                    lambda: plain_encode(rows)),
-        "decode": (lambda: decode(*coefs), {"K6": 3}, lambda: plain_decode(*coefs)),
-        "decode + blur3": (lambda: decode_filter(*coefs), {"K6": 3, "K1 rows": 1},
+        "decode": (lambda: decode(*coefs), {"K6": 3, "K11": 1}, lambda: plain_decode(*coefs)),
+        "decode + blur3": (lambda: decode_filter(*coefs), {"K6": 3, "K11": 1, "K1 rows": 1},
                            lambda: plain_rows_chunked(plain_decode(*coefs), CHANNELS,
                                                       ("gaussian3",))),
-        "transcode": (None, {"K6": 3, "K1 rows": 1, "K7": 3}, None),
+        "transcode": (None, {"K6": 3, "K11": 1, "K1 rows": 1, "K7": 3}, None),
     }
     results = {}
-    timed = SESSIONS * 3 * PASSES
     for name, (one_pass, per_pass, plain) in paths.items():
+        # The passes between reset_counts and check_counts: SESSIONS sessions
+        # of a warm-up and 3 timed calls, the profiled window's warm-up and
+        # call (each call PASSES passes), then the kept result (3 chained
+        # transcode passes, or 1).
+        runs = SESSIONS * 4 * PASSES + 2 * PASSES + (3 if name == "transcode" else 1)
         wrappers = reset_counts()
         if name == "transcode":
             ms, sessions = median_pass_ms(lambda: chained(PASSES))
             busy = device_busy(lambda: chained(PASSES))
             got = chained(3)
-            counts = check_counts(wrappers, {k: v * timed for k, v in per_pass.items()}, name)
+            counts = check_counts(wrappers, {k: v * runs for k, v in per_pass.items()}, name,
+                                  exact=True)
             want = coefs
             for _ in range(3):
                 want = plain_transcode(*want)
@@ -1350,11 +1380,14 @@ def phase_codec_main_paths(card: str) -> dict:
             ms, sessions = median_pass_ms(lambda: [one_pass() for _ in range(PASSES)])
             busy = device_busy(lambda: [one_pass() for _ in range(PASSES)])
             got = one_pass()
-            counts = check_counts(wrappers, {k: v * timed for k, v in per_pass.items()}, name)
+            counts = check_counts(wrappers, {k: v * runs for k, v in per_pass.items()}, name,
+                                  exact=True)
             err = same(got, plain(), name)
             plain_ms = cuda_ms(plain)
         results[name] = {"ms": ms, "sessions": sessions, "plain_ms": plain_ms, "err": err,
-                         "idle": 1 - busy[1] / busy[0], "counts": counts}
+                         "idle": 1 - busy[1] / busy[0], "counts": counts, "passes": runs,
+                         # Launches a pass, from the counts over the passes.
+                         "per_pass": {k: n // runs for k, n in counts.items() if n}}
         del got
         print(f"[18 codec main path] {name}, {NUM_IMAGES} images of {SIDE}x{SIDE}x{CHANNELS} "
               f"4:2:0 q90: sessions {[round(t, 4) for t in sessions]} ms/pass, median "
@@ -1362,7 +1395,8 @@ def phase_codec_main_paths(card: str) -> dict:
               f"the plain path ({'after 3 chained passes, ' if name == 'transcode' else ''}"
               f"plain {plain_ms:.4f} ms/pass); device idle over {PASSES} passes "
               f"{results[name]['idle']:.2%} (kernels {busy[1]:.3f} of {busy[0]:.3f} ms); "
-              f"launches { {k: n for k, n in counts.items() if n} } [{card}]", flush=True)
+              f"launches { {k: n for k, n in counts.items() if n} } over {runs} passes "
+              f"[{card}]", flush=True)
     # The first image, decoded on the card, against the port's CPU path.
     cpu_first = jd.decode_planes(geo, [c[:1].cpu() for c in coefs], qt, layout="rows")
     first_err = max_abs_err(decode(*(c[:1] for c in coefs)).cpu(), cpu_first)
@@ -1380,8 +1414,7 @@ def phase_codec_main_paths(card: str) -> dict:
     split = {
         "K6": cuda_ms(lambda: [cuda_dct.dequant_idct_cuda(c, q, out=g)
                                for c, q, g in zip(coefs, qt, grids)], reps=PASSES),
-        "decode torch work": cuda_ms(lambda: jd._rows_from_grids(
-            geo, grids, out=dec_rows), reps=PASSES),
+        "K11": cuda_ms(lambda: jd._rows_from_grids(geo, grids, out=dec_rows), reps=PASSES),
         "K1 rows": cuda_ms(lambda: gaussian_blur_rows_cuda(dec_rows, CHANNELS, 1, out=blurred),
                            reps=PASSES),
         "encode torch work": cuda_ms(lambda: je._sample_grids(
@@ -1390,6 +1423,8 @@ def phase_codec_main_paths(card: str) -> dict:
                                for g, q, o in zip(enc_grids, qt, outs)], reps=PASSES),
     }
     plain_k6 = cuda_ms(lambda: [chunked(jd.idct8x8_islow, c, q) for c, q in zip(coefs, qt)])
+    with plain_kernels():
+        plain_k11 = cuda_ms(lambda: jd._rows_from_grids(geo, grids))
     plain_k7 = cuda_ms(lambda: [chunked(je.fdct_quantize_plain, g, q)
                                 for g, q in zip(enc_grids, qt)])
     samples = sum(g.numel() for g in grids)
@@ -1402,15 +1437,117 @@ def phase_codec_main_paths(card: str) -> dict:
     print(f"[18 codec main path] the transcode pass split: "
           f"{ {k: round(v, 4) for k, v in split.items()} } ms (sum "
           f"{sum(split.values()):.4f}, pass {results['transcode']['ms']:.4f}); plain K6 "
-          f"{plain_k6:.4f} ms, plain K7 {plain_k7:.4f} ms; bounds K6 {bounds['K6'][0]:.4f} ms "
+          f"{plain_k6:.4f} ms, plain K11 {plain_k11:.4f} ms, plain K7 {plain_k7:.4f} ms; "
+          f"bounds K6 {bounds['K6'][0]:.4f} ms "
           f"({bounds['K6'][1]}), K7 {bounds['K7'][0]:.4f} ms ({bounds['K7'][1]}) over "
           f"{samples} samples and {coef_bytes} coefficient bytes; first image and stream "
           f"against the CPU path: max_abs_err 0 [{card}]", flush=True)
     serve.close()
     del coefs, rows, grids, dec_rows, blurred, enc_grids, outs
     torch.cuda.empty_cache()
+    k11 = k11_bench_grids(card)
     return {"paths": results, "split": split, "plain_k6": plain_k6, "plain_k7": plain_k7,
-            "bounds": bounds}
+            "plain_k11": plain_k11, "bounds": bounds, "k11": k11}
+
+
+# The codec cell's images: 320x240 4:2:0.
+BENCH_H, BENCH_W = 240, 320
+# K11 over them: (label, scale_denom, bytes each grid's base lies past an
+# aligned start, the form the kernel must take). Full size is the cell's
+# decode; bases one byte off and the 1/8 decode (40x30: no whole run of 16
+# pixels a row) take the any form.
+K11_CASES = (("the cell", 1, 0, "vec"), ("the cell, bases 1 byte off", 1, 1, "any"),
+             ("the cell at 1/8", 8, 0, "any"))
+
+
+def k11_form(fn) -> str:
+    """The form of K11 (``vec`` or ``any``) that ``fn`` launches, from the
+    kernel names torch.profiler records over a warm-up and PASSES calls (one
+    call of ~1 ms is too short a window for it to record reliably); raises
+    unless it is one."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PASSES):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA}
+    forms = {m.group(1) for name in names
+             for m in [re.search(r"ycc_rows_(vec|any)_kernel", name)] if m}
+    if len(forms) != 1:
+        raise AssertionError(f"K11's calls launched the forms {forms or 'none'}; the "
+                             f"device events: {sorted(names)[:8]}")
+    return forms.pop()
+
+
+def k11_bench_grids(card: str) -> dict:
+    """Phase 18: K11 alone over grids of the codec cell's shapes (5000
+    images of 320x240 4:2:0, random samples) in each of K11_CASES: the form
+    it takes, ms a launch beside its bound (the bytes it must move over
+    3.35 TB/s), a ``Tensor.copy_`` moving as many bytes (a yardstick the
+    port never calls) and its plain version on the card, and its output
+    against it."""
+    from hipe_tpu_torch.ops import cuda_dct
+    from hipe_tpu_torch.ops import jpeg_decode as jd
+    from hipe_tpu_torch.ops import jpeg_encode as je
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    geo = je.encode_geometry(BENCH_H, BENCH_W, CHANNELS, "420")
+    results = {}
+    for label, denom, offset, want_form in K11_CASES:
+        sizes = jd.scaled_sizes(geo, denom)
+        shapes = [(NUM_IMAGES, hb * ss, wb * ss) for (_, _, wb, hb), ss in zip(geo.comps, sizes)]
+        grids = []
+        for sh in shapes:
+            n = sh[0] * sh[1] * sh[2]
+            buf = torch.empty(n + offset, dtype=torch.uint8, device=dev)
+            buf[offset:] = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                                         generator=gen)
+            grids.append(buf[offset:].view(sh))
+        fancy = jd.ycc_rows_fancy(geo, denom)
+        args = (fancy, jd._scaled_down_dims(geo, 1, sizes[1]),
+                (-(-BENCH_H // denom), -(-BENCH_W // denom)))
+        oh, ow = args[2]
+        out = torch.empty((NUM_IMAGES, oh, ow * 3), dtype=torch.uint8, device=dev)
+        wrappers = reset_counts()
+        form = k11_form(lambda: cuda_dct.ycc_rows_cuda(*grids, *args, out=out))
+        if form != want_form:
+            raise AssertionError(f"K11 took the {form} form over {label}, not {want_form}")
+        ms = cuda_ms(lambda: cuda_dct.ycc_rows_cuda(*grids, *args, out=out), reps=PASSES)
+        if wrappers["K11"].launches != 2 * PASSES + 2:
+            raise AssertionError(f"K11 launched {wrappers['K11'].launches} times over "
+                                 f"{label}, not {2 * PASSES + 2}")
+        plain = jd.ycc_rows_plain(*grids, *args)
+        err = max_abs_err(out, plain)
+        if err:
+            raise AssertionError(f"K11 differs from its plain version over {label}: "
+                                 f"max-abs {err}")
+        del plain
+        plain_ms = cuda_ms(lambda: jd.ycc_rows_plain(*grids, *args))
+        moved = sum(g.numel() for g in grids) + out.numel()
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = cuda_ms(lambda: dst.copy_(src), reps=PASSES)
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        print(f"[18 codec main path] K11 alone over {label}: {NUM_IMAGES} images of {ow}x{oh}, "
+              f"{'fancy h2v2' if fancy else 'chroma at the output resolution'} (grids "
+              f"{shapes[0][1:]} and 2 x {shapes[1][1:]}, bases {offset} bytes off): the "
+              f"{form} form, {ms:.4f} ms a launch, {bound_ms / ms:.1%} of its bound "
+              f"{bound_ms:.4f} ms (bytes: {moved}); a copy_ of {moved // 2} bytes (as many "
+              f"moved) {copy_ms:.4f} ms, K11 {ms / copy_ms:.3f}x it; plain {plain_ms:.4f} ms; "
+              f"max_abs_err {err} against the plain version [{card}]", flush=True)
+        results[label] = {"form": form, "ms": ms, "plain_ms": plain_ms, "copy_ms": copy_ms,
+                          "bound_ms": bound_ms, "bytes": moved, "err": err}
+        del grids, out, src, dst
+        torch.cuda.empty_cache()
+    return results
 
 
 # Phase 19: the reference's programs (its stream: 5000 images of 320x240x3).
@@ -1616,10 +1753,10 @@ CPU_IMAGES = 16  # images of each path held against the CPU path
 
 @contextlib.contextmanager
 def plain_kernels():
-    """While the block runs, K6, K7, K1's rows entry and equalize's K8-K10
-    are their plain versions on the card (in chunks) wherever the port
-    calls them: the same path with each kernel replaced, the yardstick of
-    phases 20 and 21."""
+    """While the block runs, K6, K7, K11, K1's rows entry and equalize's
+    K8-K10 are their plain versions on the card (in chunks) wherever the
+    port calls them: the same path with each kernel replaced, the
+    yardstick of phases 18, 20 and 21."""
     from hipe_tpu_torch.models import pipelines as plib
     from hipe_tpu_torch.ops import jpeg_decode as jd
     from hipe_tpu_torch.ops import jpeg_encode as je
@@ -1634,14 +1771,20 @@ def plain_kernels():
         y = plain_rows_chunked(rows, c, (f"gaussian{2 * r + 1}",), h_pad)
         return y if out is None else out.copy_(y)
 
-    saved = jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda
-    jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda = (
-        idct, fdct, rows_blur)
+    def ycc_rows(*args, out=None):
+        y = jd.ycc_rows_plain(*args)
+        return y if out is None else out.copy_(y)
+
+    saved = (jd.dequant_idct_cuda, jd.ycc_rows_cuda, je.fdct_quantize_cuda,
+             plib.gaussian_blur_rows_cuda)
+    (jd.dequant_idct_cuda, jd.ycc_rows_cuda, je.fdct_quantize_cuda,
+     plib.gaussian_blur_rows_cuda) = (idct, ycc_rows, fdct, rows_blur)
     try:
         with plain_equalize():
             yield
     finally:
-        jd.dequant_idct_cuda, je.fdct_quantize_cuda, plib.gaussian_blur_rows_cuda = saved
+        (jd.dequant_idct_cuda, jd.ycc_rows_cuda, je.fdct_quantize_cuda,
+         plib.gaussian_blur_rows_cuda) = saved
 
 
 # Planes a call of equalize's plain stages on the card: the int64 index of
@@ -1705,9 +1848,8 @@ def drive_serving_path(card: str, label: str, fn, inputs, cpu_fn, per_pass: dict
     got = fn(*inputs)
     torch.cuda.synchronize()
     runs = SERVE_REPS + 2
-    counts = check_counts(wrappers, {k: v * runs for k, v in per_pass.items()}, label)
-    if any(counts[k] != v * runs for k, v in per_pass.items()):
-        raise AssertionError(f"{label}: launches {counts}, expected {per_pass} a pass")
+    counts = check_counts(wrappers, {k: v * runs for k, v in per_pass.items()}, label,
+                          exact=True)
     with plain_kernels():
         want = fn(*inputs)
     err = outputs_err(got, want)
@@ -1782,7 +1924,7 @@ def phase_serving_options(card: str) -> dict:
         "resize_to=(144, 200)": {"resize_to": (144, 200)},
         "decode_gray + colorize": {"decode_gray": True, "colorize": lut},
     }
-    totals = {"K6": 0, "K7": 0, "K1 rows": 0}
+    totals = {"K6": 0, "K11": 0, "K7": 0, "K1 rows": 0}
     paths = {}
 
     def add(label: str, res: dict) -> None:
@@ -1795,14 +1937,15 @@ def phase_serving_options(card: str) -> dict:
                                **opts) for d in (dev, cpu)]
         g, q = sps[0]._maybe_gray_geo(geo, qkey)
         k6 = sum(size == 8 for size in jd.scaled_sizes(g, sps[0].decode_scale))
+        k11 = int(jd.ycc_rows_fancy(g, sps[0].decode_scale) is not None)
         k7 = sps[0]._out_c(3 if g.ncomps == 3 else 1)
         ins = coefs[:g.ncomps]
         add(f"{name} decode + blur3", drive_serving_path(
             card, f"{name} decode + blur3", sps[0].decode_filter_fn(g, q), ins,
-            sps[1].decode_filter_fn(g, q), {"K6": k6, "K1 rows": 1}))
+            sps[1].decode_filter_fn(g, q), {"K6": k6, "K11": k11, "K1 rows": 1}))
         add(f"{name} transcode", drive_serving_path(
             card, f"{name} transcode", sps[0].transcode_fn(g, q), ins,
-            sps[1].transcode_fn(g, q), {"K6": k6, "K1 rows": 1, "K7": k7}))
+            sps[1].transcode_fn(g, q), {"K6": k6, "K11": k11, "K1 rows": 1, "K7": k7}))
         for sp in sps:
             sp.close()
     image4 = torch.from_numpy(checker_image(SIDE, SIDE, 4, seed=1)).to(dev)
@@ -2142,7 +2285,7 @@ def phase_global_stats(card: str) -> dict:
     coefs = tuple(c.expand(NUM_IMAGES, *c.shape[1:]).contiguous()
                   for c in je.encode_planes(geo, one, qt))
     serving = {}
-    totals = {"K6": 0, "K7": 0, **{k: 0 for k in EQUALIZE_KERNELS}}
+    totals = {"K6": 0, "K11": 0, "K7": 0, **{k: 0 for k in EQUALIZE_KERNELS}}
     for name, params in (("equalize", {}), ("autocontrast", {"cutoff": 2}),
                          ("contrast", {"factor": 1.5})):
         pipe = GlobalStatsPipeline(name, **params)
@@ -2150,8 +2293,8 @@ def phase_global_stats(card: str) -> dict:
         sps = [ServingPipeline(pipe, device=d, decode_on_device=True, encode_on_device=True)
                for d in (dev, cpu)]
         own = {k: 1 for k in EQUALIZE_KERNELS} if name == "equalize" else {}
-        for what, per_pass in (("decode_filter_fn", {"K6": 3, **own}),
-                               ("transcode_fn", {"K6": 3, "K7": 3, **own})):
+        for what, per_pass in (("decode_filter_fn", {"K6": 3, "K11": 1, **own}),
+                               ("transcode_fn", {"K6": 3, "K11": 1, "K7": 3, **own})):
             res = drive_serving_path(card, f"{label} {what}", getattr(sps[0], what)(geo, qkey),
                                      coefs, getattr(sps[1], what)(geo, qkey), per_pass,
                                      phase="21 global stats")
@@ -2336,7 +2479,7 @@ def main() -> int:
         "replaces": "hipe_tpu/ops/pallas_dct.py:72",
         "launches": (transcode["counts"]["K6"] + serving["launches"]["K6"]
                      + stats["launches"]["K6"]),
-        "launches_per_pass": 3,
+        "launches_per_pass": transcode["per_pass"]["K6"],
         # Phase 20: scaled-size-8, gray, full-size and CMYK/YCCK components.
         "serving_options_launches": serving["launches"]["K6"],
         # Phase 21: the serving paths with a global-statistics pipeline.
@@ -2356,7 +2499,7 @@ def main() -> int:
         "replaces": "hipe_tpu/ops/pallas_dct.py:155",
         "launches": (transcode["counts"]["K7"] + serving["launches"]["K7"]
                      + stats["launches"]["K7"]),
-        "launches_per_pass": 3,
+        "launches_per_pass": transcode["per_pass"]["K7"],
         # Phase 20: the encode of every option's transcode.
         "serving_options_launches": serving["launches"]["K7"],
         # Phase 21: the transcodes with a global-statistics pipeline.
@@ -2368,6 +2511,33 @@ def main() -> int:
         "bound_by": codec["bounds"]["K7"][1],
         "library_ms": no_library,
         "ptxas": dct_ptxas["fdct_quantize_kernel"],
+    }, {
+        "name": "ycc_rows_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/ycc_rows.cu",
+        # hipe_tpu upsamples and converts colour in XLA ops: no pallas_call.
+        "replaces": None,
+        "launches": (transcode["counts"]["K11"] + serving["launches"]["K11"]
+                     + stats["launches"]["K11"]),
+        "launches_per_pass": transcode["per_pass"]["K11"],
+        # Phase 20: the options whose decode it takes (scaled 4:2:0, full size).
+        "serving_options_launches": serving["launches"]["K11"],
+        "global_stats_launches": stats["launches"]["K11"],
+        "max_abs_err": max(max(c["err"] for c in codec["k11"].values()), codec_err),
+        # Alone over grids of the codec cell's shapes, beside a copy_ moving
+        # as many bytes; then on phase 18's 256x256 stream.
+        "ms": codec["k11"]["the cell"]["ms"],
+        "plain_ms": codec["k11"]["the cell"]["plain_ms"],
+        "bound_ms": codec["k11"]["the cell"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": no_library,
+        "copy_ms": codec["k11"]["the cell"]["copy_ms"],
+        # The any form, alone over the cases that take it.
+        "any_form": {label: {k: c[k] for k in ("ms", "bound_ms", "copy_ms", "plain_ms")}
+                     for label, c in codec["k11"].items() if c["form"] == "any"},
+        "stream_ms": codec["split"]["K11"],
+        "stream_plain_ms": codec["plain_k11"],
+        "ptxas": {k: v for k, v in dct_ptxas.items() if k.startswith("ycc_rows")},
     }] + [{
         "name": name,
         "route": "cuda",

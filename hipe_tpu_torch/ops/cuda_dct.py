@@ -1,16 +1,21 @@
-"""The JPEG codec's DCTs on the card: wrappers of kernels K6 and K7
-(``csrc/dct_blocks.cu``).
+"""The JPEG codec's kernels on the card: wrappers of K6 and K7
+(``csrc/dct_blocks.cu``) and K11 (``csrc/ycc_rows.cu``).
 
 The counterpart of ``hipe_tpu.ops.pallas_dct``: K6 computes what
 ``_idct_kernel`` computes (dequantize, islow IDCT, range limit) and K7 what
 ``_fdct_kernel`` computes (level shift, islow fDCT, quantize), in the card's
 layout: coefficients ``(B, Hb, Wb, 64)`` int16 in natural order and the
-component's sample grid ``(B, Hb*8, Wb*8)`` uint8.
+component's sample grid ``(B, Hb*8, Wb*8)`` uint8. K11 replaces no Pallas
+kernel (``hipe_tpu`` upsamples and converts colour in XLA ops): it turns the
+three sample grids of a 4:2:0 decode (jdsample.c's fancy h2v2 upsample) or
+of one whose chroma is at the output's resolution into interleaved RGB rows
+``(B, H, W*3)`` uint8 (jdcolor.c's ycc_rgb_convert), in one launch.
 
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (:func:`hipe_tpu_torch.ops.jpeg_decode.idct8x8_islow`,
-:func:`hipe_tpu_torch.ops.jpeg_encode.fdct_quantize_plain`), which is also
-what the kernels are held against on the card.
+:func:`hipe_tpu_torch.ops.jpeg_encode.fdct_quantize_plain`,
+:func:`hipe_tpu_torch.ops.jpeg_decode.ycc_rows_plain`), which is also what
+the kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -110,4 +115,52 @@ def fdct_quantize_cuda(grid: torch.Tensor, qtable, *,
     fdct_quantize_cuda.launch(
         grid, lambda: f"fdct_quantize_u8 launch failed for {(b, hb, wb)} blocks",
         grid.data_ptr(), out.data_ptr(), q.ctypes.data, b, hb, wb)
+    return out
+
+
+@_build.entry("hipe_ycc_rows_u8", P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I)
+def ycc_rows_cuda(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, fancy: bool,
+                  chroma_dims: tuple[int, int], out_dims: tuple[int, int], *,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """K11: upsample + YCbCr -> RGB of three sample grids to interleaved rows.
+
+    ``y``, ``cb``, ``cr``: ``(B, rows, pitch)`` uint8 sample grids (each its
+    own padded size). With ``fancy`` each chroma grid, cropped to
+    ``chroma_dims`` (its downsampled dims), takes jdsample.c's h2v2 fancy
+    upsample, edges replicated at those dims; without it the chroma grids
+    are at the output's resolution. Returns ``(B, H, W*3)`` uint8 RGB rows,
+    ``(H, W) = out_dims`` (into ``out`` if given), bit-exact against
+    jdcolor.c's ycc_rgb_convert. jdsample.c's narrow-plane guard is the
+    caller's: ``fancy`` computes the fancy filter at any width.
+    """
+    for t, what in ((y, "y"), (cb, "cb"), (cr, "cr")):
+        _check(t, torch.uint8, what, 1)
+        if t.shape[0] != y.shape[0] or t.device != y.device:
+            raise ValueError(f"{what} must share y's batch {y.shape[0]} and device {y.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    (dh, dw), (oh, ow) = chroma_dims, out_dims
+    f = 2 if fancy else 1
+    if (min(dh, dw, oh, ow) < 1 or y.shape[1] < oh or y.shape[2] < ow
+            or min(cb.shape[1], cr.shape[1]) < dh or min(cb.shape[2], cr.shape[2]) < dw
+            or f * dh < oh or f * dw < ow):
+        raise ValueError(f"grids {tuple(y.shape)}, {tuple(cb.shape)}, {tuple(cr.shape)} do not "
+                         f"cover chroma dims {chroma_dims} and output {out_dims} "
+                         f"(fancy={fancy})")
+    b = y.shape[0]
+    if out is not None:
+        if out.shape != (b, oh, ow * 3) or out.device != y.device:
+            raise ValueError(f"out must be {(b, oh, ow * 3)} on {y.device}")
+        _check(out, torch.uint8, "out", 1)
+    if y.device.type == "cpu":
+        # Imported here: jpeg_decode imports this module.
+        from hipe_tpu_torch.ops.jpeg_decode import ycc_rows_plain
+
+        rows = ycc_rows_plain(y, cb, cr, fancy, chroma_dims, out_dims)
+        return rows if out is None else out.copy_(rows)
+    if out is None:
+        out = torch.empty((b, oh, ow * 3), dtype=torch.uint8, device=y.device)
+    ycc_rows_cuda.launch(
+        y, lambda: f"ycc_rows_u8 launch failed for {b} images of {out_dims}",
+        y.data_ptr(), cb.data_ptr(), cr.data_ptr(), out.data_ptr(), b, *y.shape[1:],
+        *cb.shape[1:], *cr.shape[1:], dh, dw, oh, ow, int(fancy))
     return out

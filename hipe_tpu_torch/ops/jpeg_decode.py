@@ -11,11 +11,19 @@ narrow-plane replication guard) and ``ycc_rgb_convert`` (jdcolor.c).
 On a CUDA tensor the dequantize + IDCT of each component is kernel K6
 (:func:`hipe_tpu_torch.ops.cuda_dct.dequant_idct_cuda`), one launch a
 component, straight to the component's sample grid. Upsampling and colour
-conversion are plain PyTorch on the card, as ``hipe_tpu`` does them in XLA
-ops, in chunks of :data:`CHUNK_PIXELS` output pixels so their int32
-temporaries stay small. The plain IDCT below (:func:`_dequant_planes`,
-:func:`_idct_planes_core`) is K6's plain version: the CPU path and the
-yardstick the kernel is held against.
+conversion of a 3-component decode whose two chroma planes both take the
+fancy h2v2 upsample (4:2:0 at full size) or none (4:4:4, and 4:2:0 at 1/2,
+1/4 and 1/8, where the scaled sizes absorb the ratio) go through K11's
+wrapper (:func:`hipe_tpu_torch.ops.cuda_dct.ycc_rows_cuda`), straight to
+the interleaved rows (:func:`ycc_rows_fancy` chooses, from the geometry):
+one launch a call on the card, its plain version :func:`ycc_rows_plain` on
+CPU tensors. Every other geometry (4:2:2, 4:4:0, replicated ratios, the
+narrow-plane guard, CMYK/YCCK, gray) upsamples and converts in plain
+PyTorch on either device, as ``hipe_tpu`` does in XLA ops, in chunks of
+:data:`CHUNK_PIXELS` output pixels so their int32 temporaries stay small.
+The plain IDCT below (:func:`_dequant_planes`, :func:`_idct_planes_core`)
+is K6's plain version and :func:`ycc_rows_plain` K11's: the yardsticks the
+kernels are held against.
 
 Besides 1- and 3-component streams it decodes Adobe CMYK and YCCK
 (jdcolor.c's null and ycck_cmyk_convert), the luma alone of a colour stream
@@ -32,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, quant_table
+from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, quant_table, ycc_rows_cuda
 from hipe_tpu_torch.profiling.trace import span
 
 # jidctint.c fixed-point constants (CONST_BITS = 13).
@@ -339,6 +347,47 @@ def _cmyk_rows(comps: list, color: int) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], out.shape[-2] * 4)
 
 
+def ycc_rows_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, fancy: bool,
+                   chroma_dims: tuple[int, int], out_dims: tuple[int, int]) -> torch.Tensor:
+    """K11's plain version (:func:`hipe_tpu_torch.ops.cuda_dct.ycc_rows_cuda`),
+    in batch chunks: the chroma grids cropped to ``chroma_dims`` and, with
+    ``fancy``, upsampled by :func:`fancy_upsample_h2v2`; every grid cropped
+    to ``out_dims``; then :func:`ycc_to_rgb` -> ``(B, H, W*3)`` uint8 rows."""
+    (dh, dw), (oh, ow) = chroma_dims, out_dims
+    out = torch.empty((y.shape[0], oh, ow * 3), dtype=torch.uint8, device=y.device)
+    for s in _chunks(y.shape[0], oh * ow):
+        chroma = [c[s, :dh, :dw] for c in (cb, cr)]
+        if fancy:
+            chroma = [fancy_upsample_h2v2(c) for c in chroma]
+        out[s] = _rgb_rows(y[s, :oh, :ow], *(c[..., :oh, :ow] for c in chroma))
+    return out
+
+
+def _ratios(geo: "DecodeGeometry", sizes: tuple, mins: int) -> list:
+    """Each component's upsampling ratio (hr, vr) at scaled DCT sizes
+    ``sizes`` and luma size ``mins``."""
+    return [(geo.max_h * mins // (h * ss), geo.max_v * mins // (v * ss))
+            for (h, v, _, _), ss in zip(geo.comps, sizes)]
+
+
+def ycc_rows_fancy(geo: "DecodeGeometry", scale_denom: int) -> bool | None:
+    """Whether K11 upsamples this decode's chroma, or None where the torch
+    path keeps it: True where both chroma planes take
+    :func:`fancy_upsample_h2v2` (ratio (2, 2), not under the narrow-plane
+    guard); False where neither is upsampled (ratio (1, 1)). Only
+    3-component decodes. (A 1/8 decode, which replicates every ratio, never
+    leaves (2, 2): the scaled sizes absorb it.)"""
+    if geo.ncomps != 3:
+        return None
+    sizes, mins = scaled_sizes(geo, scale_denom), _MIN_SCALED[scale_denom]
+    luma, cb, cr = _ratios(geo, sizes, mins)
+    if luma != (1, 1) or cb != cr:
+        return None
+    if cb == (1, 1):
+        return False
+    return True if cb == (2, 2) and _scaled_down_dims(geo, 1, sizes[1])[1] > 2 else None
+
+
 def _upsampled(geo: "DecodeGeometry", grids: list, s: slice, sizes: tuple, mins: int,
                out_h: int, out_w: int) -> list:
     """Batch chunk ``s`` of every component's sample grid, cropped to its
@@ -349,10 +398,7 @@ def _upsampled(geo: "DecodeGeometry", grids: list, s: slice, sizes: tuple, mins:
     1/8 decode); otherwise it selects as :func:`upsample_component`, whose
     narrow-plane guard then acts on the scaled width."""
     out = []
-    for ci, g in enumerate(grids):
-        h_samp, v_samp, _, _ = geo.comps[ci]
-        hr = geo.max_h * mins // (h_samp * sizes[ci])
-        vr = geo.max_v * mins // (v_samp * sizes[ci])
+    for ci, (g, (hr, vr)) in enumerate(zip(grids, _ratios(geo, sizes, mins))):
         dh, dw = _scaled_down_dims(geo, ci, sizes[ci])
         x = g[s, :dh, :dw]
         if (hr, vr) != (1, 1):
@@ -475,13 +521,18 @@ def _scaled_grid(coefs: torch.Tensor, qtable, ssize: int) -> torch.Tensor:
 def _rows_from_grids(geo: DecodeGeometry, grids: list, scale_denom: int = 1,
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """The components' sample grids ``(B, ...)`` uint8 at a 1/scale_denom
-    decode -> interleaved rows ``(B, H', W'*C)`` uint8, in batch chunks:
-    each grid cropped to its downsampled dims and upsampled by its own
-    ratio (:func:`_upsampled`), then colour-converted (YCbCr -> RGB, or
+    decode -> interleaved rows ``(B, H', W'*C)`` uint8: through K11's
+    wrapper where :func:`ycc_rows_fancy` takes the geometry; else in batch
+    chunks, each grid cropped to its downsampled dims and upsampled by its
+    own ratio (:func:`_upsampled`), then colour-converted (YCbCr -> RGB, or
     CMYK/YCCK). ``hipe_tpu`` splits the 4:2:0/4:2:2/4:4:0 layouts into
     phase grids to suit the TPU's lanes; the integers are the same."""
     sizes, mins = scaled_sizes(geo, scale_denom), _MIN_SCALED[scale_denom]
     out_h, out_w = -(-geo.height // scale_denom), -(-geo.width // scale_denom)
+    fancy = ycc_rows_fancy(geo, scale_denom)
+    if fancy is not None:
+        return ycc_rows_cuda(*grids, fancy, _scaled_down_dims(geo, 1, sizes[1]),
+                             (out_h, out_w), out=out)
     b, c = grids[0].shape[0], geo.ncomps
     if out is None:
         out = torch.empty((b, out_h, out_w * c), dtype=torch.uint8, device=grids[0].device)

@@ -32,7 +32,8 @@ The spans:
 - the codec's stages, each with device time and each once a call of the
   function it sits in, around all of that stage's launches or chunks:
   ``codec.idct`` (the components' IDCTs: K6, or the reduced IDCTs) and
-  ``codec.upsample_color`` (upsampling and YCbCr -> RGB) in
+  ``codec.upsample_color`` (upsampling and YCbCr -> RGB: K11 where it
+  takes the geometry, else torch ops in chunks) in
   ``ops/jpeg_decode.py``'s ``decode_planes_scaled``; ``codec.filter`` (the
   filter and the stages after it) in ``runtime/serve.py``'s
   ``ServingPipeline.encode_fn`` with ``with_filter``; and

@@ -8,7 +8,7 @@ them (each gives the same bytes):
   thread pool, the filter runs on the card, libjpeg encodes;
 - ``decode_on_device``: the host decodes only the entropy layer, and the
   card dequantizes, runs the IDCT (K6), upsamples and converts colour
-  together with the filter;
+  (K11 for 4:2:0 and 4:4:4) together with the filter;
 - ``encode_on_device``: the card filters, converts colour, downsamples and
   runs fDCT + quantize (K7); the host entropy-encodes the coefficients;
 - both: the full transcode on the card, coefficients in and coefficients

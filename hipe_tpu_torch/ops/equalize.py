@@ -43,7 +43,8 @@ its three stages are the hand-written kernels K8-K10
 (``ops/cuda_equalize.py``), with about 1.3 KB of temporaries a plane and
 no chunks. ``equalize_planar``'s three stages are the spans
 ``stats.histogram``, ``stats.lut`` and ``stats.apply``
-(``profiling/trace.py``), one of each a call, on either route.
+(``profiling/trace.py``), one of each a call, on either route; the whole
+of ``mode_planar`` (either size) is the span ``stats.mode``, one a call.
 
 ``colorize_lut`` builds PIL ``ImageOps.colorize``'s three wedge tables with
 Pillow's own integer arithmetic; the serving pipeline applies them as the
@@ -717,10 +718,11 @@ def mode_planar(planes: torch.Tensor, channels: int = 3, *, size: int = 3,
         raise ValueError(f"mode filter size must be 3 or 5, got {size}")
     r = size // 2
     n, h, w = planes.shape
-    xp = torch.full((n, h + 2 * r, w + 2 * r), _MODE_SENTINEL, dtype=torch.int16,
-                    device=planes.device)
-    xp[:, r:r + h, r:r + w] = planes
-    return _store(_mode_core(xp, size), out)
+    with span("stats.mode", planes.device):
+        xp = torch.full((n, h + 2 * r, w + 2 * r), _MODE_SENTINEL, dtype=torch.int16,
+                        device=planes.device)
+        xp[:, r:r + h, r:r + w] = planes
+        return _store(_mode_core(xp, size), out)
 
 
 def mode_rows(rows: torch.Tensor, channels: int, *, size: int = 3) -> torch.Tensor:

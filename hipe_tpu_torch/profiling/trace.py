@@ -26,6 +26,9 @@ The spans:
 - ``stats.histogram``, ``stats.lut``, ``stats.apply`` (with device time)
   around equalize's three stages in ``ops/equalize.py``'s
   ``equalize_planar``;
+- ``stats.mode`` (with device time) around the whole of ``ops/equalize.py``'s
+  ``mode_planar`` (``mode`` and ``mode5``): one a call, so one a chunk of
+  ``GlobalStatsPipeline``'s chunked pass;
 - ``serve.transcode`` (host only) around each call of the function
   ``runtime/serve.py``'s ``ServingPipeline.transcode_fn`` returns: one a
   transcode of a group;

@@ -175,19 +175,21 @@ driven only where phase 1 finds it (phase 20).
 
 21. The global-statistics family (``GlobalStatsPipeline``; PyTorch ops, as
     they are XLA ops in ``hipe_tpu``, but for equalize's three hand-written
-    kernels K8-K10): ``DeviceStreamRunner`` over the
-    5000-image stream for equalize, autocontrast (plain, ``cutoff=2``,
+    kernels K8-K10 and the mode filters' K12): ``DeviceStreamRunner`` over
+    the 5000-image stream for equalize, autocontrast (plain, ``cutoff=2``,
     ``preserve_tone``), contrast 1.5, color 2.2, sharpness 2.0, mode and
-    mode5: ms a pass (CUDA events; fewer passes for the mode filters), its
-    bound (the bytes a pass must move; the pairwise form's int32
-    operations for the mode filters), peak device memory, the device's idle
-    share over as many passes, the first image against the NumPy oracle and the
-    first 16 of a kept pass against the same op on CPU tensors; sharpness's
-    K3 launches (one a chunk of a pass) and a pass with K3 swapped for its
-    plain version; equalize's K8, K9 and K10 launches (one each a pass, the
-    stream one chunk), and each kernel alone over the stream: ms a launch,
-    its bound by bytes, its plain version's ms on the card and its output
-    against the plain version's; no other op launches a kernel. 64 varied 256x256 images
+    mode5: ms a pass (CUDA events), its bound (the bytes a pass must move),
+    peak device memory, the device's idle share over at least 100 ms of
+    passes, the first image against the NumPy oracle and the first 16 of a kept pass
+    against the same op on CPU tensors; sharpness's K3 launches (one a chunk
+    of a pass) and a pass with K3 swapped for its plain version; equalize's
+    K8, K9 and K10 launches and mode's and mode5's K12 launches (one each a
+    pass, the stream one chunk); K8-K10 each alone over the stream and over
+    the benchmark's 15000x240x320 stream, and K12 at both sizes alone over
+    the latter (its ptxas report too; a spill or a stack frame fails): ms a
+    launch, its bound by bytes, its plain version's ms on the card and its
+    output against the plain version's; no other op launches a kernel. 64
+    varied 256x256 images
     (the kinds of ``tests/test_equalize.py``, quantized levels, the float64
     quirk) against the NumPy oracles on each path (for mode and mode5, whose
     oracle is slow, a plane of one image of each kind, and all 64 against
@@ -542,6 +544,7 @@ def reset_counts() -> dict:
     from hipe_tpu_torch.ops.cuda_dct import dequant_idct_cuda, fdct_quantize_cuda, ycc_rows_cuda
     from hipe_tpu_torch.ops.cuda_equalize import (apply_lut_planar_cuda, equalize_lut_cuda,
                                                   histogram_planes_cuda)
+    from hipe_tpu_torch.ops.cuda_mode import mode_planar_cuda
     from hipe_tpu_torch.ops.cuda_rank_chain import rank_chain_planar_cuda
     from hipe_tpu_torch.ops.cuda_tiled import (filter_stage_planar_tiled_cuda,
                                                gaussian_blur_planar_tiled_cuda)
@@ -551,7 +554,8 @@ def reset_counts() -> dict:
                 "K3": rank_chain_planar_cuda, "K4": gaussian_blur_planar_tiled_cuda,
                 "K5": filter_stage_planar_tiled_cuda, "K6": dequant_idct_cuda,
                 "K7": fdct_quantize_cuda, "K8": histogram_planes_cuda,
-                "K9": equalize_lut_cuda, "K10": apply_lut_planar_cuda, "K11": ycc_rows_cuda}
+                "K9": equalize_lut_cuda, "K10": apply_lut_planar_cuda, "K11": ycc_rows_cuda,
+                "K12": mode_planar_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -2002,10 +2006,10 @@ STATS_PATHS = (("equalize", {}), ("autocontrast", {}), ("autocontrast", {"cutoff
                ("autocontrast", {"preserve_tone": True}), ("contrast", {"factor": 1.5}),
                ("color", {"factor": 2.2}), ("sharpness", {"factor": 2.0}), ("mode", {}),
                ("mode5", {}))
-# Chained passes a timing of each path (3 timings after as many warm-up
-# passes): the mode filters' pairwise form takes far longer a pass.
-STATS_TIMED_PASSES = {"mode": 2, "mode5": 1}
+# Chained passes a timing of each path (3 timings after as many warm-up passes).
 STATS_PASSES = 5
+# The least ms of passes over which a path's idle share is read.
+STATS_BUSY_MS = 100
 # Times the stream's bytes a pass must move: equalize, autocontrast and
 # contrast read it for their statistics, then read and write it; color and
 # mode read and write it; sharpness reads and writes it through K3 (the
@@ -2015,16 +2019,6 @@ STATS_STREAM_BYTES = {"equalize": 3, "autocontrast": 3, "contrast": 3, "color": 
 STATS_BATCH = 64  # varied 256x256 images held against the NumPy oracles
 STATS_KINDS = ("uniform", "lowrange", "skewed", "constant", "twovals", "sparse", "overflow",
                "levels", "float_quirk")
-
-
-def mode_ops(size: int) -> int:
-    """Integer operations a pixel of the mode filter's pairwise form, by
-    hand: a compare a distinct offset of two window positions (12 for size
-    3, 40 for 5), two adds a pair of the window's J values, five a value for
-    its key (compare, shift, add, select, max), five to decode the best key
-    and gate it on the centre."""
-    j = size * size
-    return ((2 * size - 1) ** 2 - 1) // 2 + j * (j - 1) + 5 * j + 5
 
 
 def stats_image(kind: str, seed: int) -> np.ndarray:
@@ -2148,6 +2142,63 @@ def equalize_kernels(card: str, planes: torch.Tensor) -> dict:
     return res
 
 
+def k12_ptxas() -> dict:
+    """(registers, spill stores, spill loads, stack frame) of K12's two
+    instantiations (mode_planar_kernel<1>, <2>) in the build log."""
+    import re
+
+    from hipe_tpu_torch.ops import _build
+
+    log = (_build.build_dir() / "build.log").read_text()
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        m = re.search(r"mode_planar_kernelILi(\d)E", entry.split("\n")[0])
+        if m:
+            out[f"r{m.group(1)}"] = ptxas_numbers(entry)
+    return out
+
+
+def mode_kernel(card: str, planes: torch.Tensor) -> dict:
+    """K12 alone over the stream ``planes`` at both sizes: ms a launch (CUDA
+    events, the mean of PASSES after a warm-up), its bound (the stream read
+    once and written once over the card's 3.35 TB/s), its plain version's
+    ms on the card (the pairwise form, in the CPU route's chunks) and its
+    output against the plain version's; and K12's ptxas report, which fails
+    on a spill or a stack frame."""
+    from hipe_tpu_torch.models.pipelines import global_stats_chunk
+    from hipe_tpu_torch.ops import cuda_mode as cm
+    from hipe_tpu_torch.ops import equalize as eq
+
+    ptxas = k12_ptxas()
+    if sorted(ptxas) != ["r1", "r2"] or any(v[1:] != (0, 0, 0) for v in ptxas.values()):
+        raise AssertionError(f"K12's ptxas report missing, or spills or a stack frame "
+                             f"(registers, spill stores, spill loads, stack frame): {ptxas}")
+    n, h, w = planes.shape
+    out, ref = torch.empty_like(planes), torch.empty_like(planes)
+    res = {"ptxas": ptxas}
+    for size, name in ((3, "mode"), (5, "mode5")):
+        k = global_stats_chunk(h, w, CHANNELS, name, "cpu")
+
+        def plain():
+            for i in range(0, n, k):
+                ref[i:i + k] = eq.mode_plain(planes[i:i + k], size)
+            return ref
+
+        ms = cuda_ms(lambda: cm.mode_planar_cuda(planes, size, out=out), reps=PASSES)
+        plain_ms = cuda_ms(plain)
+        err = max_abs_err(cm.mode_planar_cuda(planes, size, out=out), plain())
+        bound_ms = 2 * n * h * w / HBM_BYTES_PER_S * 1e3
+        if err:
+            raise AssertionError(f"K12 {name}: max-abs {err} against its plain version")
+        print(f"[21 global stats] {name} K12 alone over {n}x{h}x{w}: {ms:.4f} ms a launch; "
+              f"bound {bound_ms:.4f} ms (bytes); plain {plain_ms:.4f} ms; max_abs_err {err} "
+              f"against the plain version; ptxas r{size // 2} (registers, spill stores, "
+              f"spill loads, stack frame) {ptxas[f'r{size // 2}']} [{card}]", flush=True)
+        res[name] = {"shape": [n, h, w], "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                     "plain_ms": plain_ms, "err": err}
+    return res
+
+
 def phase_global_stats(card: str) -> dict:
     """Phase 21: the global-statistics family over the 5000-image stream,
     a varied batch against the NumPy oracles, the engine and three serving
@@ -2163,6 +2214,7 @@ def phase_global_stats(card: str) -> dict:
     t_phase = time.perf_counter()
     dev, cpu = torch.device("cuda"), torch.device("cpu")
     kernels, equalize_launches, equalize_runs = {}, {}, 0
+    k12, k12_launches = {}, {}
     batch = np.stack([stats_image(STATS_KINDS[i % len(STATS_KINDS)], seed=i)
                       for i in range(STATS_BATCH)])
     batch_planes = torch.from_numpy(hwc_to_planar(batch)).to(dev)
@@ -2178,7 +2230,7 @@ def phase_global_stats(card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         err = runner.verify_max_abs_err()  # the first image against the NumPy oracle
-        passes = STATS_TIMED_PASSES.get(name, STATS_PASSES)
+        passes = STATS_PASSES
         ms = runner.measure_throughput(passes=passes, reps=3)["per_pass_s"] * 1e3
         kept = runner.run_passes(1)
         torch.cuda.synchronize()
@@ -2186,7 +2238,8 @@ def phase_global_stats(card: str) -> dict:
         runs = 1 + 4 * passes + 1  # verify, warm-up and 3 timings, the kept pass
         chunks = -(-runner.stream.shape[0] // global_stats_chunk(SIDE, SIDE, CHANNELS, name,
                                                                   dev))
-        own = {"sharpness": ("K3",), "equalize": EQUALIZE_KERNELS}.get(name, ())
+        own = {"sharpness": ("K3",), "equalize": EQUALIZE_KERNELS, "mode": ("K12",),
+               "mode5": ("K12",)}.get(name, ())
         expect = {k: chunks * runs for k in own}
         counts = check_counts(wrappers, expect, label)
         if any(counts[k] != n for k, n in expect.items()):
@@ -2200,15 +2253,28 @@ def phase_global_stats(card: str) -> dict:
             for k, v in equalize_kernels(card, bench).items():
                 kernels[k]["bench_stream"] = {"shape": list(bench.shape), **v}
             del bench
+        if name in ("mode", "mode5"):
+            # Launches a pass of the stream, as counted over its passes.
+            per_pass, rest = divmod(counts["K12"], runs)
+            if rest:
+                raise AssertionError(f"{name} K12: {counts['K12']} launches over {runs} "
+                                     "stream passes is no whole number a pass")
+            k12_launches[name] = {"stream_launches": counts["K12"], "launches_per_pass": per_pass}
+        if name == "mode5":
+            bench = bench_stream_planes(seed=21)
+            k12 = mode_kernel(card, bench)
+            del bench
         head = CPU_IMAGES * CHANNELS
         cpu_err = max_abs_err(kept[:head].cpu(), pipe.apply_planar(runner.stream[:head].cpu()))
         plain_err = None
         if name == "sharpness":
             with plain_k3():
                 plain_err = max_abs_err(kept, runner.run_passes(1))
-        # As many passes as a timing: one equalize pass (~1 ms) is too short
-        # a window for torch.profiler to record its kernels reliably.
-        busy = device_busy(lambda: runner.run_passes(passes))
+        # At least STATS_BUSY_MS of passes: a few milliseconds of them (an
+        # equalize pass is ~1 ms, a mode pass on K12 ~6) is too short a window
+        # for torch.profiler to record their kernels reliably.
+        busy_passes = max(passes, int(STATS_BUSY_MS / ms) + 1)
+        busy = device_busy(lambda: runner.run_passes(busy_passes))
         del kept, runner
         torch.cuda.empty_cache()
         varied = pipe.apply_planar(batch_planes)
@@ -2230,15 +2296,13 @@ def phase_global_stats(card: str) -> dict:
                                  f"{batch_err} (varied batch against the oracles), "
                                  f"{plain_err} (against plain K3)")
         pixels = NUM_IMAGES * SIDE * SIDE * CHANNELS
-        t_bytes = STATS_STREAM_BYTES[name] * pixels / HBM_BYTES_PER_S * 1e3
-        t_ops = (mode_ops(5 if name == "mode5" else 3) * pixels / INT32_OPS_PER_S * 1e3
-                 if name.startswith("mode") else 0.0)
-        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        bound_ms, bound_by = STATS_STREAM_BYTES[name] * pixels / HBM_BYTES_PER_S * 1e3, "bytes"
         launched = {k: n for k, n in counts.items() if n}
         print(f"[21 global stats] {label}: {ms:.4f} ms a pass ({passes} passes, median of 3), "
               f"{NUM_IMAGES * 1e3 / ms:.1f} img/s; bound {bound_ms:.4f} ms ({bound_by}); "
               f"{chunks} chunks; peak memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB "
-              f"resident); device idle over {passes} passes {1 - busy[1] / busy[0]:.2%}; launches "
+              f"resident); device idle over {busy_passes} passes "
+              f"{1 - busy[1] / busy[0]:.2%}; launches "
               f"{launched or 'none'} over {runs} passes; max_abs_err {err} (first image "
               f"against the oracle), {cpu_err} (first {CPU_IMAGES} against the CPU), "
               f"{batch_err} ({STATS_BATCH} varied images against the "
@@ -2317,8 +2381,10 @@ def phase_global_stats(card: str) -> dict:
             raise AssertionError(f"equalize {k}: {equalize_launches[k]} launches over "
                                  f"{equalize_runs} stream passes is no whole number a pass")
         kernels[k]["launches_per_pass"] = per_pass
+    for name, v in k12_launches.items():
+        k12[name].update(v)
     return {"paths": paths, "engine": engine, "serving": serving, "kernels": kernels,
-            "launches": {"K3": k3_launches, **totals}, "secs": secs}
+            "k12": k12, "launches": {"K3": k3_launches, **totals}, "secs": secs}
 
 
 def main() -> int:
@@ -2559,7 +2625,25 @@ def main() -> int:
         "bench_stream": stats["kernels"][k]["bench_stream"],
     } for k, name, stage in (("K8", "equalize_histogram_u8", "histogram"),
                              ("K9", "equalize_lut_u8", "table"),
-                             ("K10", "equalize_apply_u8", "apply"))]}))
+                             ("K10", "equalize_apply_u8", "apply"))] + [{
+        "name": "mode_planar_u8",
+        "route": "cuda",
+        "source": "hipe_tpu_torch/csrc/mode_planar.cu",
+        # hipe_tpu's mode filter is XLA ops: no pallas_call to replace.
+        "replaces": None,
+        "launches": sum(stats["k12"][nm]["stream_launches"] for nm in ("mode", "mode5")),
+        "max_abs_err": max(stats["k12"]["mode"]["err"], stats["k12"]["mode5"]["err"],
+                           stats["paths"]["mode"]["err"], stats["paths"]["mode5"]["err"]),
+        # Phase 21: alone over the benchmark's 15000x240x320 stream, at each
+        # size, with its launches a pass of the 5000-image stream.
+        "sizes": {nm: stats["k12"][nm] for nm in ("mode", "mode5")},
+        "ms": stats["k12"]["mode5"]["ms"],
+        "plain_ms": stats["k12"]["mode5"]["plain_ms"],
+        "bound_ms": stats["k12"]["mode5"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": no_library,
+        "ptxas": stats["k12"]["ptxas"],
+    }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

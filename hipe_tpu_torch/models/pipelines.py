@@ -18,7 +18,8 @@ and K5 stage by stage for planes too wide for K2's or K3's shared memory.
 family (equalize, autocontrast, contrast, color, sharpness, mode, mode5):
 PyTorch ops from :mod:`hipe_tpu_torch.ops.equalize`, as they are XLA ops in
 ``hipe_tpu``, run in chunks of whole images at stream scale; sharpness's
-SMOOTH plane runs K3 (K5 for planes too wide for it).
+SMOOTH plane runs K3 (K5 for planes too wide for it). On the card equalize
+runs K8-K10 and the mode filters K12, each over a whole stream in one chunk.
 """
 
 from __future__ import annotations
@@ -170,7 +171,8 @@ class GlobalStatsPipeline:
     - ``color``: PIL ``ImageEnhance.Color`` (a blend a pixel with its luma);
     - ``sharpness``: PIL ``ImageEnhance.Sharpness`` (a blend with the SMOOTH
       plane, which K3 computes on the card, and PIL's border copy);
-    - ``mode`` / ``mode5``: PIL ``ImageFilter.ModeFilter(3 | 5)``.
+    - ``mode`` / ``mode5``: PIL ``ImageFilter.ModeFilter(3 | 5)`` (kernel
+      K12 on the card).
 
     ``factor`` is contrast/color/sharpness's strength (1.0, the registry's,
     is the identity). ``channels`` is the channel count of *planar* inputs,
@@ -183,8 +185,11 @@ class GlobalStatsPipeline:
 
     # The ops whose card route runs hand-written kernels: the route's
     # autotune label and the bytes of temporaries it holds a plane, not a
-    # pixel (equalize's K8-K10: an int32 histogram and a uint8 table).
-    CARD_ROUTES: ClassVar[dict] = {"equalize": ("cuda_k8_k10", 256 * 4 + 256)}
+    # pixel (equalize's K8-K10: an int32 histogram and a uint8 table; the
+    # mode filters' K12 keeps its histograms in shared memory and holds
+    # none, counted as 1 so that global_stats_chunk's division stands).
+    CARD_ROUTES: ClassVar[dict] = {"equalize": ("cuda_k8_k10", 256 * 4 + 256),
+                                   "mode": ("cuda_k12", 1), "mode5": ("cuda_k12", 1)}
 
     name: str
     filters: tuple = ()
@@ -233,7 +238,8 @@ class GlobalStatsPipeline:
     def launch_candidates(self, h: int, w: int, device) -> list[tuple[str, dict, str | None]]:
         """One autotune config, no knob of its own (sharpness's K3 or K5
         routes itself), named after the op's route on ``device``: its
-        :attr:`CARD_ROUTES` label on a CUDA device, else ``torch_ops``."""
+        :attr:`CARD_ROUTES` label on a CUDA device (``cuda_k8_k10`` for
+        equalize, ``cuda_k12`` for mode and mode5), else ``torch_ops``."""
         card = torch.device(device).type == "cuda" and self.name in self.CARD_ROUTES
         return [(self.CARD_ROUTES[self.name][0] if card else "torch_ops", {}, None)]
 

@@ -26,9 +26,11 @@ bit for bit:
   on the card kernel K3 (K5 for planes too wide for it), on the CPU the
   plain chain.
 - ``mode`` / ``mode5``: PIL ``ImageFilter.ModeFilter(3 | 5)``. The window
-  is truncated at the image bounds (a -1 sentinel, kept in int16, marks the
-  positions outside), counts come from a pairwise equality sum, ties break
-  to the lowest value and a mode seen at most twice leaves the pixel.
+  is truncated at the image bounds, ties break to the lowest value and a
+  mode seen at most twice leaves the pixel. On the card kernel K12
+  (``ops/cuda_mode.py``): a sliding 256-bin histogram a thread, one launch
+  a call. On the CPU the plain form: a -1 sentinel, kept in int16, marks
+  the positions outside, and counts come from a pairwise equality sum.
 
 Each op has ``_planar`` (``(N, H, W)``; the per-image ops group planes as
 ``b*channels + c``), ``_rows`` (``(B, H, W*C)``) and ``_nhwc`` (``(..., H,
@@ -38,13 +40,15 @@ LUT is applied with ``torch.gather``. ``hipe_tpu``'s comparison-sum LUT apply
 (``use_cmp``) is a TPU formulation and is not carried over. The planar ops
 take ``out=``. They materialize int64 indices and int32/int16 temporaries
 the size of their input, so callers at stream scale chunk them
-(``GlobalStatsPipeline`` does). Equalize on a CUDA tensor is the exception:
-its three stages are the hand-written kernels K8-K10
-(``ops/cuda_equalize.py``), with about 1.3 KB of temporaries a plane and
-no chunks. ``equalize_planar``'s three stages are the spans
-``stats.histogram``, ``stats.lut`` and ``stats.apply``
-(``profiling/trace.py``), one of each a call, on either route; the whole
-of ``mode_planar`` (either size) is the span ``stats.mode``, one a call.
+(``GlobalStatsPipeline`` does). Equalize and the mode filters on a CUDA
+tensor are the exceptions: equalize's three stages are the hand-written
+kernels K8-K10 (``ops/cuda_equalize.py``), with about 1.3 KB of
+temporaries a plane, and the mode filter is kernel K12
+(``ops/cuda_mode.py``), with none; neither is chunked.
+``equalize_planar``'s three stages are the spans ``stats.histogram``,
+``stats.lut`` and ``stats.apply`` (``profiling/trace.py``), one of each a
+call, on either route; the whole of ``mode_planar`` (either size) is the
+span ``stats.mode``, one a call.
 
 ``colorize_lut`` builds PIL ``ImageOps.colorize``'s three wedge tables with
 Pillow's own integer arithmetic; the serving pipeline applies them as the
@@ -708,21 +712,43 @@ def _mode_core(xp: torch.Tensor, size: int) -> torch.Tensor:
     return res.view(xp.shape)[..., :hn, :wn]
 
 
+def mode_plain(planes: torch.Tensor, size: int) -> torch.Tensor:
+    """The plain mode filter, (N, H, W) uint8 -> same: :func:`_mode_core`
+    over a sentinel-padded int16 copy."""
+    r = size // 2
+    n, h, w = planes.shape
+    xp = torch.full((n, h + 2 * r, w + 2 * r), _MODE_SENTINEL, dtype=torch.int16,
+                    device=planes.device)
+    xp[:, r:r + h, r:r + w] = planes
+    return _mode_core(xp, size).to(torch.uint8)
+
+
+def _mode_planar_cuda(planes: torch.Tensor, size: int,
+                      out: torch.Tensor | None) -> torch.Tensor:
+    """The mode filter on the card: kernel K12, one launch over all the
+    planes (``ops/cuda_mode.py``); an ``out`` it cannot write straight
+    (strided, or sharing bytes with ``planes``) takes a copy."""
+    from hipe_tpu_torch.ops import cuda_mode as cm
+
+    planes = planes.contiguous()
+    if out is None or (out.is_contiguous() and not cm.overlaps(out, planes)):
+        return cm.mode_planar_cuda(planes, size, out=out)
+    return _store(cm.mode_planar_cuda(planes, size), out)
+
+
 def mode_planar(planes: torch.Tensor, channels: int = 3, *, size: int = 3,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """(N, H, W) uint8 -> same; PIL ``ImageFilter.ModeFilter(size)``, each
-    plane alone (``channels`` is taken for the family's signature)."""
+    plane alone (``channels`` is taken for the family's signature). On the
+    card kernel K12; on the CPU :func:`mode_plain`."""
     if planes.dtype != torch.uint8:
         raise TypeError(f"expected uint8, got {planes.dtype}")
     if size not in (3, 5):
         raise ValueError(f"mode filter size must be 3 or 5, got {size}")
-    r = size // 2
-    n, h, w = planes.shape
     with span("stats.mode", planes.device):
-        xp = torch.full((n, h + 2 * r, w + 2 * r), _MODE_SENTINEL, dtype=torch.int16,
-                        device=planes.device)
-        xp[:, r:r + h, r:r + w] = planes
-        return _store(_mode_core(xp, size), out)
+        if planes.device.type == "cuda":
+            return _mode_planar_cuda(planes, size, out)
+        return _store(mode_plain(planes, size), out)
 
 
 def mode_rows(rows: torch.Tensor, channels: int, *, size: int = 3) -> torch.Tensor:

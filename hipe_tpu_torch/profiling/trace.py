@@ -28,7 +28,8 @@ The spans:
   ``equalize_planar``;
 - ``stats.mode`` (with device time) around the whole of ``ops/equalize.py``'s
   ``mode_planar`` (``mode`` and ``mode5``): one a call, so one a chunk of
-  ``GlobalStatsPipeline``'s chunked pass;
+  ``GlobalStatsPipeline``'s chunked pass (on the card one K12 launch, the
+  stream one chunk);
 - ``serve.transcode`` (host only) around each call of the function
   ``runtime/serve.py``'s ``ServingPipeline.transcode_fn`` returns: one a
   transcode of a group;

@@ -14,7 +14,8 @@ autotune sweeps the launch configs the pipeline offers
 A global-statistics pipeline (``GlobalStatsPipeline``: equalize,
 autocontrast, contrast, color, sharpness, mode) runs its PyTorch ops in
 chunks of whole images, with no launch knob to sweep; sharpness's SMOOTH
-plane runs K3.
+plane runs K3, and equalize (K8-K10) and the mode filters (K12) run
+hand-written kernels over the whole stream in one chunk.
 
 Chained passes feed every output into the next pass, alternating between
 two scratch buffers (the kernels are out-of-place: a tile's halo rows
@@ -194,8 +195,9 @@ class DeviceStreamRunner:
 
         The configs are ``rows_per_block`` values for K1/K2/K3 and tile
         shapes for K4/K5 on the tiled route; a global-statistics pipeline has
-        one, named after its route (``cuda_k8_k10`` for equalize on the card,
-        else ``torch_ops``), so the sweep only times it. Returns {label:
+        one, named after its route (on the card ``cuda_k8_k10`` for
+        equalize and ``cuda_k12`` for mode and mode5, else ``torch_ops``),
+        so the sweep only times it. Returns {label:
         per_pass_seconds}. A config that exceeds shared memory, or whose
         launch fails, is recorded in ``self.tuning["skipped"]`` with the
         reason; the sweep raises if none ran. The plain version is never a

@@ -7,7 +7,8 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
 Every op of ``GlobalStatsPipeline`` in each layout and in chunks; sharpness
 launches K3 for its SMOOTH plane (K5 on planes too wide for K3), equalize
-K8, K9 and K10 once each a call, and no other op launches a kernel; the
+K8, K9 and K10 once each a call, mode and mode5 K12 once a call, and no
+other op launches a kernel; the
 device stream, the engine's CUDA lane and the serving transcode with a
 stats pipeline (K6 and K7 around it, from coefficients the port's encoder
 makes: the card's machine has no libjpeg).
@@ -19,7 +20,7 @@ import torch
 
 from hipe_tpu_torch.io_.jpeg import quality_tables
 from hipe_tpu_torch.models import pipelines as plib
-from hipe_tpu_torch.ops import cuda_dct, cuda_equalize, cuda_rank_chain, cuda_tiled
+from hipe_tpu_torch.ops import cuda_dct, cuda_equalize, cuda_mode, cuda_rank_chain, cuda_tiled
 from hipe_tpu_torch.ops import jpeg_encode as je
 from hipe_tpu_torch.ops import planar
 from hipe_tpu_torch.runtime.device_stream import DeviceStreamRunner
@@ -79,6 +80,7 @@ def test_ops_on_the_card_equal_the_cpu(cuda, key, c):
     x = _images(4, 37, 53, c, seed=len(key) + c)
     k3, k5 = _launches()
     eqs = _equalize_launches()
+    k12 = cuda_mode.mode_planar_cuda.launches
     got = p.apply_nhwc(x.to(cuda))
     torch.cuda.synchronize()
     assert got.device.type == "cuda"
@@ -94,6 +96,8 @@ def test_ops_on_the_card_equal_the_cpu(cuda, key, c):
     # Equalize launches K8, K9 and K10 once a call (one chunk each); no other op does.
     calls = 2 if p.name == "equalize" else 0
     assert _equalize_launches() == tuple(k + calls for k in eqs)
+    # Mode and mode5 launch K12 once a call; no other op does.
+    assert cuda_mode.mode_planar_cuda.launches - k12 == (2 if p.name in ("mode", "mode5") else 0)
 
 
 def test_sharpness_of_wide_planes_launches_k5(cuda):

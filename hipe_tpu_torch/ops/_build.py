@@ -17,7 +17,8 @@ PyTorch header, which keeps the build to seconds. ``nvcc`` is looked up on
 :func:`entry` is the one way a wrapper launches a kernel: it declares a C
 entry point's argument types once and returns its launcher, which runs on
 the tensor's device and current stream, raises on a CUDA error and counts
-the launch in the wrapper's ``launches``.
+the launch in the wrapper's ``launches``, which ``profiling/trace.py``
+reads a profiler session.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from hipe_tpu_torch.profiling import trace
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -172,9 +175,10 @@ class Launch:
 def entry(symbol: str, *argtypes):
     """Decorator: the wrapper launches the C entry point ``symbol``, taking
     ``argtypes`` before the stream, through its ``launch`` (a
-    :class:`Launch`), which counts each launch in its ``launches``."""
+    :class:`Launch`), which counts each launch in its ``launches``; the
+    profiler sessions of ``profiling/trace.py`` read that count."""
     def declare(wrapper):
         wrapper.launches = 0
         wrapper.launch = Launch(wrapper, symbol, argtypes)
-        return wrapper
+        return trace.counts_launches(wrapper)
     return declare
